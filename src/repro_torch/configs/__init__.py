@@ -1,0 +1,2 @@
+"""Model configurations used by the port (so far: LeNet-5 for the §VI
+federation)."""
