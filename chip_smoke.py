@@ -7,17 +7,20 @@ prints its last line):
 
 1. the device, its ``nvidia-smi`` name and power limit, TF32 off for
    convolutions and matrix products;
-2. build every CUDA kernel of the main path from ``src/repro_torch/csrc``
+2. build every CUDA kernel of the port from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, started together) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it: quantize/dequantize bitwise on every
+   shapes its path gives it: quantize/dequantize bitwise on every
    LeNet leaf's last-axis blocking, on flat 256-column rows, on a ragged
    row count and on bf16; wfedavg within rtol/atol 1e-6 at N = 10 and
-   D = 94 080 / 10 080 and on ragged and misaligned D. Time each one
-   (device time per call from the profiler, else CUDA events) beside its
-   bound, its plain version and, where one PyTorch call computes the same
-   function, that call;
-4. the main path: the paper's §VI LeNet federation (``lenet_paper_setup``:
+   D = 94 080 / 10 080 and on ragged and misaligned D; flash attention in
+   fp32 (rtol/atol 1e-5) and bf16 (1.6e-2, one bf16 ulp) on llama3's and
+   gemma3's local heads at S = 4096, a bidirectional, a ragged, a KH = 1
+   and a KH = H case. Time each one (device time per call from the
+   profiler, else CUDA events) beside its bound, its plain version and,
+   where one PyTorch call computes the same function, that call; flash at
+   the serving path's shape, before the model is on the card;
+4. the LeNet main path: the paper's §VI federation (``lenet_paper_setup``:
    10 nodes, 20% gaussian random-model poisoners, Dirichlet(1) shards,
    kregular(10, 2), ttl 2, 108 ticks) with int8 wire payloads and the
    wfedavg kernel (``use_kernel=True``) on the heap simulator; launch
@@ -27,7 +30,17 @@ prints its last line):
    versions) from the same params must agree; then a 36-tick window of
    the main path is profiled (device busy/idle share, host split by
    function);
-6. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
+6. the serving path: ``python -m repro_torch.serve`` with llama3-8b at full
+   width and depth (8.03 B random fp32 params and their bf16 copy), B 4
+   prompts x P 4096 tokens, then 32 greedy decode steps; counts zeroed just
+   before and read just after, and flash must have launched 32 times (one
+   per layer), the logits be finite and every tensor stay on the card;
+7. prefill-then-decode consistency at that size (decode at P - 1 after a
+   prefill of P - 1 tokens against the full prefill's logits), then one
+   prefill and 8 decode steps under the profiler;
+8. ``smoke_config("llama3-8b")`` from the same params on the card (the flash
+   kernel) and on the CPU (its plain version) must agree;
+9. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line.
 
 It exits non-zero without a result when CUDA is unavailable or when the
@@ -43,6 +56,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 
 
 def fail(msg: str) -> None:
@@ -96,9 +110,9 @@ def device_ms(fn, iters: int):
     return event_ms(fn, iters), "events", names
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -224,6 +238,90 @@ def time_kernels(torch, lenet_params):
                                                       alpha=0.5),
             (n + 2) * d * 4 + n * 4, 2 * n * d + 2 * d, f"N={n} D={d} fp32")
     return rows
+
+
+# (name, B, S, H, KH, Dh, causal, window): the serving path's heads and a
+# gemma3 local layer's, a bidirectional and a ragged case, KH = 1 and KH = H
+FLASH_CASES = (
+    ("llama3 S=4096 causal", 1, 4096, 32, 8, 128, True, 0),
+    ("gemma3 local S=4096 w=1024", 1, 4096, 16, 8, 256, True, 1024),
+    ("bidirectional Dh=64", 1, 2048, 16, 4, 64, False, 0),
+    ("ragged S=1000", 2, 1000, 32, 8, 128, True, 0),
+    ("KH=1 S=1024", 1, 1024, 8, 1, 128, True, 0),
+    ("KH=H S=1024", 1, 1024, 8, 8, 128, True, 0),
+)
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}   # bf16: one bf16 ulp
+# the serving path's flash call: llama3-8b prefill, B 4 x P 4096
+FLASH_MAIN = (4, 4096, 32, 8, 128)
+
+
+def _qkv(torch, g, B, S, H, KH, Dh, dtype):
+    return (torch.randn((B, S, H, Dh), generator=g, device="cuda").to(dtype),
+            torch.randn((B, S, KH, Dh), generator=g, device="cuda").to(dtype),
+            torch.randn((B, S, KH, Dh), generator=g, device="cuda").to(dtype))
+
+
+def check_flash(torch):
+    """Kernel against its plain version on every case, fp32 and bf16; the
+    bf16 pair is compared after both are in bf16 (one bf16 ulp)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device="cuda").manual_seed(4)
+    worst = 0.0
+    for name, B, S, H, KH, Dh, causal, window in FLASH_CASES:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = _qkv(torch, g, B, S, H, KH, Dh, getattr(torch, dtype))
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = attention_ref(q, k, v, causal=causal, window=window)
+            err = float((got.float() - want.float()).abs().max())
+            tol = FLASH_TOL[dtype]
+            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+                fail(f"flash kernel != plain on {name} {dtype}: max |diff| {err}")
+            worst = max(worst, err)
+            print(f"flash {name:28s} {dtype:8s} B={B} H={H} KH={KH} Dh={Dh}: max "
+                  f"|kernel - plain| {err:.3e} (rtol/atol {tol}) OK")
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_flash(torch):
+    """The serving path's call (B 4, S 4096, H 32, KH 8, Dh 128, bf16,
+    causal) beside its bound, the plain version and one PyTorch call for the
+    same function (scaled_dot_product_attention, timed here only)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    B, S, H, KH, Dh = FLASH_MAIN
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = _qkv(torch, g, B, S, H, KH, Dh, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))    # (B, heads, S, Dh)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    got = ops.flash_attention(q, k, v)
+    lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+    lib_err = float((got.float() - lib.float()).abs().max())
+    del got, lib
+    ms, method, names = device_ms(lambda: ops.flash_attention(q, k, v), 5)
+    plain_ms, plain_method, _ = device_ms(lambda: attention_ref(q, k, v), 3)
+    lib_ms, lib_method, lib_names = device_ms(
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    call = event_ms(lambda: ops.flash_attention(q, k, v), 5)
+    pairs = S * (S + 1) // 2                   # (query, key) pairs the mask keeps
+    ops_count = 4 * Dh * pairs * B * H         # Q.K and P.V, 2 FLOP a multiply-add
+    nbytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KH * Dh)
+    b_ms, b_by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S)
+    shape = f"B={B} S={S} H={H} KH={KH} Dh={Dh} bf16 causal"
+    timing = f"{method}/{plain_method}/{lib_method}"
+    print(f"time flash_attention {shape} kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+          f"library_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by}; {ops_count:.4e} "
+          f"FLOP, {nbytes:.4e} B) call_ms={call:.5f} [{timing}; kernel events "
+          f"{names}; library events {lib_names}]")
+    print(f"flash kernel vs scaled_dot_product_attention at that shape: max "
+          f"|diff| {lib_err:.3e}; kernel at {ops_count / ms / 1e9:.2f} TFLOP/s, "
+          f"{b_ms / ms:.4f} of its bound")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, call_ms=call, shape=shape, timing=timing)
 
 
 # ------------------------------------------------------------ phases 4-5
@@ -403,6 +501,182 @@ def profile_window(torch, ticks: int = 36):
             print(f"  {key:32s} {cum[key]:8.3f} s  {cum[key] / wall:.3f}")
 
 
+# ------------------------------------------------------------ phases 6-9
+SERVE_ARGS = ["--arch", "llama3-8b", "--batch", "4", "--prompt-len", "4096",
+              "--gen", "33"]                    # 32 decode steps after prefill
+CONSISTENCY_TOL = 0.08   # of the logits' scale (tests/test_models.py's 0.08)
+
+
+def run_serving(torch):
+    """The serving path: ``python -m repro_torch.serve`` at llama3-8b's full
+    width and depth, counted."""
+    from repro_torch import serve, tree
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = serve.main(SERVE_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    sec = out["seconds"]
+    steps = out["tokens"].shape[1] - 1
+    print(f"serving path: python -m repro_torch.serve {' '.join(SERVE_ARGS)} "
+          f"(device cuda)")
+    print(f"serving wall seconds: init {sec['init']:.3f}, prefill "
+          f"{sec['prefill']:.4f}, decode {sec['decode']:.4f} for {steps} steps = "
+          f"{sec['decode'] / steps * 1e3:.3f} ms/token")
+    print(f"serving first row tokens: {out['tokens'][0].tolist()}")
+    print(f"serving peak device memory: {peak / 2**30:.3f} GiB "
+          f"({peak} bytes); params fp32 + bf16 weight copy + KV cache")
+    print(f"serving launches: {json.dumps(launches, sort_keys=True)}")
+    if launches.get("flash_attention", 0) != 32:
+        fail(f"flash_attention launched {launches.get('flash_attention', 0)} "
+             "times on the serving path, not 32 (one per layer)")
+    for name in ("prefill_logits", "logits"):
+        if not bool(torch.isfinite(out[name]).all()):
+            fail(f"serving {name} are not finite")
+    for what in ("params", "weights", "cache"):
+        for leaf in tree.leaves(out[what]):
+            if leaf is not None and leaf.device.type != "cuda":
+                fail(f"serving {what} left the card ({leaf.device})")
+    return out, launches
+
+
+def _scale_gap(torch, got, want):
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def check_serving_consistency(torch, out):
+    """Decode at position P - 1 after prefilling P - 1 tokens (a ragged
+    length) against the full prefill's last logits (tests/test_models.py's
+    check), at full size on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config("llama3-8b")
+    prompts, weights = out["prompts"], out["weights"]
+    P = prompts.shape[1]
+    cache = transformer.cache_init(cfg, prompts.shape[0], P + 1, "cuda")
+    _, cache = transformer.prefill(weights, cfg, {"tokens": prompts[:, :P - 1]},
+                                   cache)
+    logits_d, _ = transformer.decode_step(weights, cfg, prompts[:, P - 1:], cache,
+                                          P - 1)
+    want = out["prefill_logits"]
+    gap, scale = _scale_gap(torch, logits_d, want)
+    agree = float((logits_d.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"prefill-then-decode consistency (llama3-8b, P-1 = {P - 1}): max "
+          f"|decode - prefill| {gap:.4f} on logits up to {scale:.4f} "
+          f"({gap / scale:.4f} of the scale; limit {CONSISTENCY_TOL}), argmax "
+          f"agreement {agree:.2f}")
+    if not gap <= CONSISTENCY_TOL * scale:
+        fail("prefill-then-decode logits disagree beyond the bf16 tolerance")
+    del cache
+    torch.cuda.empty_cache()
+
+
+def profile_serving(torch, out, steps: int = 8):
+    """Where the serving path's time goes: one prefill, then ``steps``
+    decode steps, each window under the profiler (device busy/idle share,
+    top device ops, the flash kernel's share of prefill device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config("llama3-8b")
+    prompts, weights = out["prompts"], out["weights"]
+    B, P = prompts.shape
+    cache = transformer.cache_init(cfg, B, P + steps, "cuda")
+    cuda = torch.autograd.DeviceType.CUDA
+    shares = {}
+
+    def window(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_name = {}
+        for e in prof.events():
+            if getattr(e, "device_type", None) == cuda:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+        busy = sum(by_name.values())
+        flash = sum(t for n, t in by_name.items() if "flash_fwd_kernel" in n)
+        print(f"profile {name} (profiler on): wall {wall:.4f} s, device busy "
+              f"{busy:.4f} s, device idle share {1 - busy / wall:.4f}, flash "
+              f"kernel {flash:.4f} s = {flash / busy if busy else 0.0:.4f} of busy")
+        for n, sec in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  device {sec:.4f} s ({sec / busy:.3f} of busy)  {n[:90]}")
+        shares[name] = dict(wall=wall, busy=busy, idle=1 - busy / wall,
+                            flash_share=flash / busy if busy else 0.0)
+
+    state = {}
+
+    def prefill():
+        state["logits"], _ = transformer.prefill(weights, cfg, {"tokens": prompts},
+                                                 cache)
+
+    def decode():
+        tok = state["logits"].argmax(-1)[:, None]
+        for i in range(steps):
+            logits, _ = transformer.decode_step(weights, cfg, tok, cache, P + i)
+            tok = logits.argmax(-1)[:, None]
+
+    window("prefill (B 4, P 4096)", prefill)
+    window(f"decode ({steps} steps)", decode)
+    del cache
+    torch.cuda.empty_cache()
+    return shares
+
+
+def check_smoke_card_vs_cpu(torch):
+    """smoke_config("llama3-8b") from the same params on the card (the flash
+    kernel) and on the CPU (its plain version): prefill of a ragged prompt
+    and 4 decode steps, fp32 logits within rtol/atol 1e-4, bf16 within
+    5e-2 of the logits' scale (tests/test_torch_transformer.py's limits)."""
+    from repro_torch import convert
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer
+
+    cfg = smoke_config("llama3-8b")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    params = {"cuda": transformer.init(g, cfg, "cuda")}
+    params["cpu"] = convert.params_from_jax(convert.params_to_numpy(params["cuda"]),
+                                            "cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40), generator=g, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        logits = {}
+        reset_launches()
+        for dev in ("cuda", "cpu"):
+            cache = transformer.cache_init(cfg, 2, 48, dev, dtype=dtype)
+            lg, cache = transformer.prefill(params[dev], cfg,
+                                            {"tokens": prompts.to(dev)}, cache,
+                                            dtype=dtype)
+            seq = [lg]
+            tok = prompts[:, -1:].to(dev)
+            for i in range(4):
+                lg, cache = transformer.decode_step(params[dev], cfg, tok, cache,
+                                                    40 + i, dtype=dtype)
+                seq.append(lg)
+            logits[dev] = torch.stack(seq).cpu()
+        if LAUNCHES["flash_attention"] != cfg.num_layers:
+            fail(f"smoke prefill on the card launched flash "
+                 f"{LAUNCHES['flash_attention']} times, not {cfg.num_layers}")
+        gap, scale = _scale_gap(torch, logits["cuda"], logits["cpu"])
+        if dtype == torch.float32:
+            ok = torch.allclose(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-4)
+        else:
+            ok = gap <= 5e-2 * scale
+        print(f"smoke llama3-8b card vs CPU ({dtype}, prefill P=40 + 4 decode "
+              f"steps): max |diff| {gap:.3e} on logits up to {scale:.3f}")
+        if not ok:
+            fail(f"smoke llama3-8b logits differ between card and CPU ({dtype})")
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     import torch
@@ -441,21 +715,38 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}")
 
-    # phase 3: kernels against their plain versions
+    # phase 3: kernels against their plain versions, and their times (the
+    # flash plain version at B 4 needs ~17 GB: before the model is on the card)
     g = torch.Generator(device="cuda").manual_seed(0)
     params = lenet.init(g, CONFIG, "cuda")
     q_err, dq_err = check_quantize(torch, params)
     wf_err = check_wfedavg(torch)
+    fa_err = check_flash(torch)
     times = time_kernels(torch, params)
+    times["flash_attention"] = time_flash(torch)
 
-    # phase 4: the main path, counted
+    # phase 4: the LeNet main path, counted
     launches = run_main_path(torch)
 
     # phase 5: a reference on a small input, then where the time goes
     check_small_federation(torch)
     profile_window(torch)
 
-    # phase 6: report
+    # phase 6: the serving path, counted
+    out, serve_launches = run_serving(torch)
+    launches["flash_attention"] = serve_launches["flash_attention"]
+
+    # phase 7: prefill-then-decode consistency at full size, then where the
+    # serving path's time goes
+    check_serving_consistency(torch, out)
+    profile_serving(torch, out)
+    del out
+    torch.cuda.empty_cache()
+
+    # phase 8: the card (kernel) against the CPU (plain version) at smoke size
+    check_smoke_card_vs_cpu(torch)
+
+    # phase 9: report
     kernels = []
     for kname, src, replaces, err in (
             ("quantize", "src/repro_torch/csrc/quantize.cu",
@@ -463,7 +754,9 @@ def main() -> int:
             ("dequantize", "src/repro_torch/csrc/quantize.cu",
              "src/repro/kernels/quantize/quantize.py:59", dq_err),
             ("wfedavg", "src/repro_torch/csrc/wfedavg.cu",
-             "src/repro/kernels/wfedavg/wfedavg.py:31", wf_err)):
+             "src/repro/kernels/wfedavg/wfedavg.py:31", wf_err),
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:82", fa_err)):
         t = times[kname]
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[kname],

@@ -20,10 +20,13 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("quantize", "wfedavg")
+SOURCES = ("quantize", "wfedavg", "flash_attention")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# flash_attention: q, k, v, o; batch, H, KH, Sq, Skv, Dh; (batch, seq, head)
+# strides of q, k, v, o in elements; causal, window, scale; stream
+_FLASH = [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P]
 # C signatures: every pointer and the stream as c_void_p; status is the
 # launch's cudaGetLastError() (0 = cudaSuccess)
 SIGNATURES: Dict[str, Dict[str, List]] = {
@@ -34,6 +37,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "wfedavg": {
         "wfedavg_f32": [_P, _P, _P, _P, _I, _LL, _P],
+    },
+    "flash_attention": {
+        "flash_attention_fwd_f32": _FLASH,
+        "flash_attention_fwd_bf16": _FLASH,
     },
 }
 

@@ -1,0 +1,62 @@
+"""Wrapper for the flash-attention forward kernel (``csrc/flash_attention.cu``).
+
+``flash_attention`` takes the model's layout, q (B, Sq, H, Dh) and k/v
+(B, Skv, KH, Dh), strided, and hands the strides to the kernel: no
+transpose, no repeat of kv heads, no head-dim pad and no sequence pad (the
+Pallas wrapper's TPU artefacts). CUDA tensors go to the kernel (or raise),
+CPU tensors to the plain version in ``ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+MAX_HEAD_DIM = 256
+_ENTRY = {torch.float32: "flash_attention_fwd_f32",
+          torch.bfloat16: "flash_attention_fwd_bf16"}
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
+    """Masked softmax attention; query head h reads kv head h // (H // KH).
+
+    ``scale`` defaults to Dh ** -0.5. Returns (B, Sq, H, Dh) in q.dtype."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention takes q (B, Sq, H, Dh), k/v (B, Skv, "
+                         f"KH, Dh); got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, Dh = q.shape
+    KH = k.shape[2]
+    if k.shape[0] != B or k.shape[3] != Dh or KH < 1 or H % KH:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    scale = Dh ** -0.5 if scale is None else float(scale)
+    if not q.is_cuda:
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash kernel takes fp32 or bf16 q, k, v of one dtype; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    if Dh > MAX_HEAD_DIM or Dh % 8:
+        raise ValueError(f"flash kernel takes a head dim <= {MAX_HEAD_DIM} and a "
+                         f"multiple of 8, got {Dh}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash kernel takes a unit stride along the head dim")
+    out = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device)
+    if B == 0 or Sq == 0 or H == 0:
+        return out
+    if k.shape[1] == 0:
+        raise ValueError("flash_attention needs at least one key")
+    with torch.cuda.device(q.device):
+        status = getattr(build.load("flash_attention"), _ENTRY[q.dtype])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, KH, Sq, k.shape[1], Dh,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            int(bool(causal)), int(window), scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(status, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

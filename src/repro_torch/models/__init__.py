@@ -1,1 +1,2 @@
-"""Models of the port (so far: LeNet-5 for the §VI federation)."""
+"""Models of the port: LeNet-5 for the §VI federation, and the LM zoo's
+attention-only transformers (``transformer``) for serving."""

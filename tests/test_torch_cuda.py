@@ -64,3 +64,47 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         wf_ops.wfedavg_flat(torch.zeros((2, 8), device=cuda, dtype=torch.float64),
                             torch.ones(2, device=cuda), torch.zeros(8, device=cuda))
+
+
+@pytest.mark.parametrize("B,S,H,KH,Dh,causal,window", [
+    (1, 512, 32, 8, 128, True, 0),       # llama3's heads
+    (1, 512, 16, 8, 256, True, 128),     # gemma3's local heads, a window
+    (2, 200, 4, 2, 64, False, 0),        # bidirectional, ragged
+    (1, 77, 4, 1, 80, True, 0),          # KH = 1, Dh padded to 128
+    (1, 130, 4, 4, 16, True, 0),         # KH = H, the smoke head dim
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_vs_plain(cuda, B, S, H, KH, Dh, causal, window,
+                                         dtype):
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator().manual_seed(S * H + Dh)
+    td = getattr(torch, dtype)
+    q = torch.randn((B, S, H, Dh), generator=g).to(cuda, td)
+    k = torch.randn((B, S, KH, Dh), generator=g).to(cuda, td)
+    v = torch.randn((B, S, KH, Dh), generator=g).to(cuda, td)
+    reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1 and out.dtype == td
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    tol = 1e-5 if dtype == "float32" else 1.6e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_takes_strided_inputs(cuda):
+    """q, k, v as views of one fused projection output (not contiguous)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator().manual_seed(5)
+    qkv = torch.randn((2, 100, 8 + 2 + 2, 32), generator=g).to(cuda)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    torch.testing.assert_close(ops.flash_attention(q, k, v),
+                               attention_ref(q, k, v), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])   # Dh stride 2
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[..., :12], k[..., :12], v[..., :12])   # Dh 12
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), k.half(), v.half())

@@ -1,0 +1,114 @@
+"""The port's flash-attention wrapper (its plain version on the CPU) held
+against the JAX package on the same numpy inputs: the Pallas kernel in
+interpret mode (``repro.kernels.flash_attention.ops``, on the shapes of
+tests/test_kernels.py) and the model's forward
+(``repro.models.flash.flash_attention_padded``, incl. ragged lengths).
+
+Tolerances: fp32 rtol = atol = 1e-5 (the same fp32 arithmetic, summed in
+another order); bf16 3e-2 (tests/test_kernels.py's own: the JAX forward
+rounds p to bf16 before P.V, the port keeps it in fp32)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+from repro.kernels.flash_attention.ops import flash_attention as pallas_flash  # noqa: E402
+from repro.models import flash as j_flash                      # noqa: E402
+
+from repro_torch.kernels import LAUNCHES, reset_launches       # noqa: E402
+from repro_torch.kernels.flash_attention import ops            # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.models import flash as p_flash                # noqa: E402
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+BF16 = dict(rtol=3e-2, atol=3e-2)
+
+
+def _qkv(seed, B, Sq, Skv, H, KH, Dh):
+    rng = np.random.RandomState(seed)
+    return (rng.standard_normal((B, Sq, H, Dh)).astype(np.float32),
+            rng.standard_normal((B, Skv, KH, Dh)).astype(np.float32),
+            rng.standard_normal((B, Skv, KH, Dh)).astype(np.float32))
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 32)])
+@pytest.mark.parametrize("S,H,KH,Dh", [(128, 4, 2, 64), (128, 2, 2, 80),
+                                       (256, 4, 1, 32)])
+def test_wrapper_matches_pallas_kernel(causal, window, S, H, KH, Dh):
+    q, k, v = _qkv(S + H + Dh, 2, S, S, H, KH, Dh)
+    want = pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=causal, window=window, block_q=64, block_kv=64)
+    reset_launches()
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal, window=window)
+    assert LAUNCHES["flash_attention"] == 0        # CPU tensors: plain version
+    assert got.shape == (2, S, H, Dh) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_wrapper_matches_pallas_kernel_bf16():
+    q, k, v = _qkv(7, 1, 128, 128, 2, 2, 64)
+    bf = jnp.bfloat16
+    want = pallas_flash(jnp.asarray(q, bf), jnp.asarray(k, bf), jnp.asarray(v, bf),
+                        causal=True, block_q=64, block_kv=64)
+    got = ops.flash_attention(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
+                              _t(v, torch.bfloat16), causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **BF16)
+
+
+def test_gqa_reads_kv_head_h_over_g():
+    """Query head h reads kv head h // G: with KH = 2, G = 2, heads 0 and 1
+    must attend kv head 0 (a map of h % KH would send head 1 to kv head 1)."""
+    q, k, v = _qkv(3, 1, 16, 16, 4, 2, 8)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=True)
+    for h in range(4):
+        one = attention_ref(_t(q)[:, :, h:h + 1], _t(k)[:, :, h // 2:h // 2 + 1],
+                            _t(v)[:, :, h // 2:h // 2 + 1], causal=True)
+        np.testing.assert_allclose(got[:, :, h:h + 1].numpy(), one.numpy(), **F32)
+
+
+@pytest.mark.parametrize("S,causal,window", [(64, True, 0), (40, True, 0),
+                                             (40, False, 0), (40, True, 12),
+                                             (96, True, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_forward_matches_jax_flash(S, causal, window, dtype):
+    """models/flash.py against the JAX forward at the smoke blocking (block_q
+    16, block_kv 32): S = 40 is ragged for both, so JAX pads and the port
+    masks its edge."""
+    B, KH, G, Dh = 2, 2, 2, 16
+    q, k, v = _qkv(S + window, B, S, S, KH * G, KH, Dh)
+    q5 = q.reshape(B, S, KH, G, Dh)
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    td = getattr(torch, dtype)
+    want = j_flash.flash_attention_padded(
+        jnp.asarray(q5, jd), jnp.asarray(k, jd), jnp.asarray(v, jd), causal,
+        window, 0, 16, 32, tri=False)
+    got = p_flash.flash_attention_padded(_t(q5, td), _t(k, td), _t(v, td),
+                                         causal, window)
+    assert got.shape == (B, S, KH, G, Dh) and got.dtype == td
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **(F32 if dtype == "float32" else BF16))
+
+
+def test_model_forward_has_no_backward_yet():
+    q, k, v = (_t(x).requires_grad_(True) for x in _qkv(0, 1, 8, 8, 2, 1, 8))
+    out = p_flash.flash_attention_padded(q.reshape(1, 8, 1, 2, 8), k, v)
+    with pytest.raises(NotImplementedError, match="LM training"):
+        out.sum().backward()
+
+
+def test_wrapper_rejects_mismatched_shapes():
+    q, k, v = (_t(x) for x in _qkv(0, 1, 8, 8, 3, 2, 8))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v)                   # H % KH != 0
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[:, :, :2], k, v[:, :4])  # v != k
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[:, :, :2], k, v, window=-1)
