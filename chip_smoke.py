@@ -13,13 +13,18 @@ prints its last line):
    shapes its path gives it: quantize/dequantize bitwise on every
    LeNet leaf's last-axis blocking, on flat 256-column rows, on a ragged
    row count and on bf16; wfedavg within rtol/atol 1e-6 at N = 10 and
-   D = 94 080 / 10 080 and on ragged and misaligned D; flash attention in
-   fp32 (rtol/atol 1e-5) and bf16 (1.6e-2, one bf16 ulp) on llama3's and
-   gemma3's local heads at S = 4096, a bidirectional, a ragged, a KH = 1
-   and a KH = H case. Time each one (device time per call from the
-   profiler, else CUDA events) beside its bound, its plain version and,
-   where one PyTorch call computes the same function, that call; flash at
-   the serving path's shape, before the model is on the card;
+   D = 94 080 / 10 080 and on ragged and misaligned D; flash attention on
+   llama3's and gemma3's local heads at S = 4096, a bidirectional, two
+   ragged (S 1000 and 4095), a KH = 1 and a KH = H case, each kernel
+   reached through the routing rule and its route read from the launch
+   counters: the sm90 kernel (bf16 wgmma + TMA) in bf16 (rtol/atol 1.6e-2,
+   one bf16 ulp), the simt kernel in fp32 (1e-5) and in bf16 on views
+   8 bytes past an aligned base. Time each one (device time per call from
+   the profiler, else CUDA events) beside its bound, its plain version
+   and, where one PyTorch call computes the same function, that call: both
+   flash kernels in bf16 at the serving path's shape and at gemma3's local
+   heads, before the model is on the card, and the simt kernel at phase
+   8's fp32 shape, its path's;
 4. the LeNet main path: the paper's §VI federation (``lenet_paper_setup``:
    10 nodes, 20% gaussian random-model poisoners, Dirichlet(1) shards,
    kregular(10, 2), ttl 2, 108 ticks) with int8 wire payloads and the
@@ -33,13 +38,17 @@ prints its last line):
 6. the serving path: ``python -m repro_torch.serve`` with llama3-8b at full
    width and depth (8.03 B random fp32 params and their bf16 copy), B 4
    prompts x P 4096 tokens, then 32 greedy decode steps; counts zeroed just
-   before and read just after, and flash must have launched 32 times (one
-   per layer), the logits be finite and every tensor stay on the card;
+   before and read just after, and the sm90 flash kernel must have
+   launched 32 times (one per layer), the logits be finite and every
+   tensor stay on the card;
 7. prefill-then-decode consistency at that size (decode at P - 1 after a
    prefill of P - 1 tokens against the full prefill's logits), then one
    prefill and 8 decode steps under the profiler;
-8. ``smoke_config("llama3-8b")`` from the same params on the card (the flash
-   kernel) and on the CPU (its plain version) must agree;
+8. ``smoke_config("llama3-8b")`` from the same params on the card (the
+   simt flash kernel, Dh 16) and on the CPU (its plain version) must
+   agree, in fp32 and bf16; counts zeroed just before each card run and
+   read just after, and the simt kernel must have launched once per layer
+   (the fp32 run's count is its row's launches);
 9. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line.
 
@@ -241,18 +250,24 @@ def time_kernels(torch, lenet_params):
 
 
 # (name, B, S, H, KH, Dh, causal, window): the serving path's heads and a
-# gemma3 local layer's, a bidirectional and a ragged case, KH = 1 and KH = H
+# gemma3 local layer's, a bidirectional and two ragged cases (S 4095 is the
+# consistency check's length), KH = 1 and KH = H
 FLASH_CASES = (
     ("llama3 S=4096 causal", 1, 4096, 32, 8, 128, True, 0),
     ("gemma3 local S=4096 w=1024", 1, 4096, 16, 8, 256, True, 1024),
     ("bidirectional Dh=64", 1, 2048, 16, 4, 64, False, 0),
     ("ragged S=1000", 2, 1000, 32, 8, 128, True, 0),
+    ("ragged S=4095", 1, 4095, 32, 8, 128, True, 0),
     ("KH=1 S=1024", 1, 1024, 8, 1, 128, True, 0),
     ("KH=H S=1024", 1, 1024, 8, 8, 128, True, 0),
 )
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}   # bf16: one bf16 ulp
-# the serving path's flash call: llama3-8b prefill, B 4 x P 4096
+# the serving path's flash call: llama3-8b prefill, B 4 x P 4096; and a
+# gemma3-12b local layer's at the same batch and length (window 1024)
 FLASH_MAIN = (4, 4096, 32, 8, 128)
+FLASH_GEMMA_LOCAL = (4, 4096, 16, 8, 256, 1024)
+# the kernel symbols whose device time is flash's share of prefill
+FLASH_SYMBOLS = ("flash_fwd_kernel", "flash_fwd_sm90_kernel")
 
 
 def _qkv(torch, g, B, S, H, KH, Dh, dtype):
@@ -261,67 +276,142 @@ def _qkv(torch, g, B, S, H, KH, Dh, dtype):
             torch.randn((B, S, KH, Dh), generator=g, device="cuda").to(dtype))
 
 
-def check_flash(torch):
-    """Kernel against its plain version on every case, fp32 and bf16; the
-    bf16 pair is compared after both are in bf16 (one bf16 ulp)."""
+def _simt_view(torch, x):
+    """The values of ``x`` in a view whose base lies 8 bytes past a 16-byte
+    aligned one: ``_variant`` sends bf16 inputs laid out so to the simt
+    kernel, at any head dim."""
+    off = 8 // x.element_size()
+    view = torch.empty(off + x.numel(), dtype=x.dtype, device=x.device)[off:]
+    return view.view(x.shape).copy_(x)
+
+
+def _flash_route(torch, q, k, v, **kw):
+    """(out, route): one call of the wrapper, and the kernel that the launch
+    counters say it launched."""
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import ops
+    before = (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_sm90"])
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    total = LAUNCHES["flash_attention"] - before[0]
+    sm90 = LAUNCHES["flash_attention_sm90"] - before[1]
+    if total != 1:
+        fail(f"one flash call counted {total} launches")
+    return out, "sm90" if sm90 else "simt"
+
+
+def check_flash(torch):
+    """Both flash kernels against the plain version on every case, each
+    reached through the routing rule and its route read from the launch
+    counters: in bf16 the sm90 kernel on the tensors as made and the simt
+    kernel on ``_simt_view`` copies of them (one bf16 ulp); in fp32 the
+    simt kernel (1e-5). Returns the worst error of each (route, dtype)."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
     g = torch.Generator(device="cuda").manual_seed(4)
-    worst = 0.0
+    worst = {}
     for name, B, S, H, KH, Dh, causal, window in FLASH_CASES:
         for dtype in ("float32", "bfloat16"):
             q, k, v = _qkv(torch, g, B, S, H, KH, Dh, getattr(torch, dtype))
-            got = ops.flash_attention(q, k, v, causal=causal, window=window)
-            want = attention_ref(q, k, v, causal=causal, window=window)
-            err = float((got.float() - want.float()).abs().max())
+            want = attention_ref(q, k, v, causal=causal, window=window).float()
             tol = FLASH_TOL[dtype]
-            if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
-                fail(f"flash kernel != plain on {name} {dtype}: max |diff| {err}")
-            worst = max(worst, err)
-            print(f"flash {name:28s} {dtype:8s} B={B} H={H} KH={KH} Dh={Dh}: max "
-                  f"|kernel - plain| {err:.3e} (rtol/atol {tol}) OK")
-            del q, k, v, got, want
+            runs = [("simt", (q, k, v))]
+            if dtype == "bfloat16":
+                runs = [("sm90", (q, k, v)),
+                        ("simt", tuple(_simt_view(torch, x) for x in (q, k, v)))]
+            for expect, qkv in runs:
+                got, used = _flash_route(torch, *qkv, causal=causal, window=window)
+                if used != expect:
+                    fail(f"flash {name} {dtype} ran the {used} kernel, not {expect}")
+                err = float((got.float() - want).abs().max())
+                if not torch.allclose(got.float(), want, rtol=tol, atol=tol):
+                    fail(f"flash {used} kernel != plain on {name} {dtype}: max "
+                         f"|diff| {err}")
+                worst[used, dtype] = max(worst.get((used, dtype), 0.0), err)
+                print(f"flash {used} {name:28s} {dtype:8s} B={B} H={H} KH={KH} "
+                      f"Dh={Dh}: max |kernel - plain| {err:.3e} (rtol/atol {tol}) OK")
+                del got, qkv
+            del q, k, v, want, runs
     torch.cuda.empty_cache()
     return worst
 
 
-def time_flash(torch):
-    """The serving path's call (B 4, S 4096, H 32, KH 8, Dh 128, bf16,
-    causal) beside its bound, the plain version and one PyTorch call for the
-    same function (scaled_dot_product_attention, timed here only)."""
+def _flash_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal mask (and a window) keeps in one head of
+    an S x S call."""
+    return S * (S + 1) // 2 if not window else sum(min(i + 1, window)
+                                                    for i in range(S))
+
+
+def time_flash(torch, B, S, H, KH, Dh, window=0, dtype="bfloat16",
+               plain_iters=3):
+    """The flash kernels at one causal shape, each beside the bound, the
+    plain version and one PyTorch call for the same function
+    (scaled_dot_product_attention, timed here only; with a window it takes
+    an explicit boolean mask). In bf16 the sm90 kernel runs on the tensors
+    as made and the simt kernel on ``_simt_view`` copies of the same values;
+    in fp32 only the simt kernel takes them. Each is held against the plain
+    version first. Returns {route: row}."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    B, S, H, KH, Dh = FLASH_MAIN
     g = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v = _qkv(torch, g, B, S, H, KH, Dh, torch.bfloat16)
+    q, k, v = _qkv(torch, g, B, S, H, KH, Dh, getattr(torch, dtype))
+    inputs = {"simt": (q, k, v)}
+    if dtype == "bfloat16":
+        inputs = {"sm90": (q, k, v),
+                  "simt": tuple(_simt_view(torch, x) for x in (q, k, v))}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))    # (B, heads, S, Dh)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    got = ops.flash_attention(q, k, v)
-    lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
-    lib_err = float((got.float() - lib.float()).abs().max())
-    del got, lib
-    ms, method, names = device_ms(lambda: ops.flash_attention(q, k, v), 5)
-    plain_ms, plain_method, _ = device_ms(lambda: attention_ref(q, k, v), 3)
-    lib_ms, lib_method, lib_names = device_ms(
-        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-    call = event_ms(lambda: ops.flash_attention(q, k, v), 5)
-    pairs = S * (S + 1) // 2                   # (query, key) pairs the mask keeps
-    ops_count = 4 * Dh * pairs * B * H         # Q.K and P.V, 2 FLOP a multiply-add
-    nbytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KH * Dh)
-    b_ms, b_by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S)
-    shape = f"B={B} S={S} H={H} KH={KH} Dh={Dh} bf16 causal"
-    timing = f"{method}/{plain_method}/{lib_method}"
-    print(f"time flash_attention {shape} kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-          f"library_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by}; {ops_count:.4e} "
-          f"FLOP, {nbytes:.4e} B) call_ms={call:.5f} [{timing}; kernel events "
-          f"{names}; library events {lib_names}]")
-    print(f"flash kernel vs scaled_dot_product_attention at that shape: max "
-          f"|diff| {lib_err:.3e}; kernel at {ops_count / ms / 1e9:.2f} TFLOP/s, "
-          f"{b_ms / ms:.4f} of its bound")
-    del q, k, v, qt, kt, vt
+    if window:
+        i = torch.arange(S, device="cuda")
+        keep = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+        def library():
+            return sdpa(qt, kt, vt, attn_mask=keep, enable_gqa=True)
+    else:
+        def library():
+            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    want = attention_ref(q, k, v, window=window).float()
+    lib_err = float((want - library().transpose(1, 2).float()).abs().max())
+    errs = {}
+    for kern, qkv in inputs.items():
+        got, used = _flash_route(torch, *qkv, window=window)
+        errs[kern] = float((got.float() - want).abs().max())
+        if used != kern or not torch.allclose(got.float(), want, rtol=FLASH_TOL[dtype],
+                                              atol=FLASH_TOL[dtype]):
+            fail(f"flash {kern} timing inputs ran {used}, max |diff| {errs[kern]}")
+        del got
+    del want
+    plain_ms, plain_method, _ = device_ms(
+        lambda: attention_ref(q, k, v, window=window), plain_iters)
+    lib_ms, lib_method, lib_names = device_ms(library, 10)
+    ops_count = 4 * Dh * _flash_pairs(S, window) * B * H   # Q.K and P.V
+    nbytes = q.element_size() * (2 * B * S * H * Dh + 2 * B * S * KH * Dh)
+    b_ms, b_by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S if dtype == "bfloat16"
+                          else FP32_OPS_PER_S)
+    shape = (f"B={B} S={S} H={H} KH={KH} Dh={Dh} {dtype} causal"
+             + (f" w={window}" if window else ""))
+    rows = {}
+    for kern, qkv in inputs.items():
+        iters = {"sm90": 20, "simt": 5 if S >= 1024 else 200}[kern]
+        fn = (lambda qkv=qkv: ops.flash_attention(*qkv, window=window))
+        ms, method, names = device_ms(fn, iters)
+        call = event_ms(fn, iters)
+        timing = f"{method}/{plain_method}/{lib_method}"
+        rows[kern] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                          bound_by=b_by, call_ms=call, shape=shape, timing=timing,
+                          max_abs_err=errs[kern])
+        print(f"time flash {kern} {shape} kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={lib_ms:.5f} bound_ms={b_ms:.6f} ({b_by}; "
+              f"{ops_count:.4e} FLOP, {nbytes:.4e} B) call_ms={call:.5f} "
+              f"max |kernel - plain| {errs[kern]:.3e} "
+              f"[{timing}; kernel events {names}; library events {lib_names}]")
+        print(f"flash {kern} at {shape}: {ops_count / ms / 1e9:.2f} TFLOP/s, "
+              f"{b_ms / ms:.4f} of its bound, {ms / lib_ms:.3f}x the library call")
+    print(f"scaled_dot_product_attention vs plain at {shape}: max |diff| "
+          f"{lib_err:.3e}")
+    del q, k, v, qt, kt, vt, inputs
     torch.cuda.empty_cache()
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, call_ms=call, shape=shape, timing=timing)
+    return rows
 
 
 # ------------------------------------------------------------ phases 4-5
@@ -531,9 +621,10 @@ def run_serving(torch):
     print(f"serving peak device memory: {peak / 2**30:.3f} GiB "
           f"({peak} bytes); params fp32 + bf16 weight copy + KV cache")
     print(f"serving launches: {json.dumps(launches, sort_keys=True)}")
-    if launches.get("flash_attention", 0) != 32:
-        fail(f"flash_attention launched {launches.get('flash_attention', 0)} "
-             "times on the serving path, not 32 (one per layer)")
+    for kname in ("flash_attention", "flash_attention_sm90"):
+        if launches.get(kname, 0) != 32:
+            fail(f"{kname} launched {launches.get(kname, 0)} times on the "
+                 "serving path, not 32 (one per layer of prefill)")
     for name in ("prefill_logits", "logits"):
         if not bool(torch.isfinite(out[name]).all()):
             fail(f"serving {name} are not finite")
@@ -604,7 +695,8 @@ def profile_serving(torch, out, steps: int = 8):
             if getattr(e, "device_type", None) == cuda:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
         busy = sum(by_name.values())
-        flash = sum(t for n, t in by_name.items() if "flash_fwd_kernel" in n)
+        flash = sum(t for n, t in by_name.items()
+                    if any(sym in n for sym in FLASH_SYMBOLS))
         print(f"profile {name} (profiler on): wall {wall:.4f} s, device busy "
               f"{busy:.4f} s, device idle share {1 - busy / wall:.4f}, flash "
               f"kernel {flash:.4f} s = {flash / busy if busy else 0.0:.4f} of busy")
@@ -627,16 +719,31 @@ def profile_serving(torch, out, steps: int = 8):
 
     window("prefill (B 4, P 4096)", prefill)
     window(f"decode ({steps} steps)", decode)
+    if shares["prefill (B 4, P 4096)"]["flash_share"] <= 0:
+        fail(f"no flash kernel ({', '.join(FLASH_SYMBOLS)}) in the prefill profile")
     del cache
     torch.cuda.empty_cache()
     return shares
+
+
+SMOKE_PROMPTS = (2, 40)       # phase 8: B x P of smoke_config("llama3-8b")
+
+
+def smoke_flash_shape():
+    """(B, S, H, KH, Dh) of phase 8's flash calls: smoke_config("llama3-8b")
+    (Dh 16, the simt kernel's) prefilling SMOKE_PROMPTS."""
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config("llama3-8b")
+    return (*SMOKE_PROMPTS, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
 
 
 def check_smoke_card_vs_cpu(torch):
     """smoke_config("llama3-8b") from the same params on the card (the flash
     kernel) and on the CPU (its plain version): prefill of a ragged prompt
     and 4 decode steps, fp32 logits within rtol/atol 1e-4, bf16 within
-    5e-2 of the logits' scale (tests/test_torch_transformer.py's limits)."""
+    5e-2 of the logits' scale (tests/test_torch_transformer.py's limits).
+    Counts are zeroed just before each card run and read just after; at Dh
+    16 every flash launch is the simt kernel's. Returns the fp32 run's."""
     from repro_torch import convert
     from repro_torch.configs import smoke_config
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -647,12 +754,16 @@ def check_smoke_card_vs_cpu(torch):
     params = {"cuda": transformer.init(g, cfg, "cuda")}
     params["cpu"] = convert.params_from_jax(convert.params_to_numpy(params["cuda"]),
                                             "cpu")
-    prompts = torch.randint(0, cfg.vocab_size, (2, 40), generator=g, device="cuda")
+    B, P = SMOKE_PROMPTS
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device="cuda")
+    counted = {}
     for dtype in (torch.float32, torch.bfloat16):
         logits = {}
-        reset_launches()
         for dev in ("cuda", "cpu"):
-            cache = transformer.cache_init(cfg, 2, 48, dev, dtype=dtype)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                reset_launches()
+            cache = transformer.cache_init(cfg, B, P + 8, dev, dtype=dtype)
             lg, cache = transformer.prefill(params[dev], cfg,
                                             {"tokens": prompts.to(dev)}, cache,
                                             dtype=dtype)
@@ -660,12 +771,16 @@ def check_smoke_card_vs_cpu(torch):
             tok = prompts[:, -1:].to(dev)
             for i in range(4):
                 lg, cache = transformer.decode_step(params[dev], cfg, tok, cache,
-                                                    40 + i, dtype=dtype)
+                                                    P + i, dtype=dtype)
                 seq.append(lg)
             logits[dev] = torch.stack(seq).cpu()
-        if LAUNCHES["flash_attention"] != cfg.num_layers:
-            fail(f"smoke prefill on the card launched flash "
-                 f"{LAUNCHES['flash_attention']} times, not {cfg.num_layers}")
+            if dev == "cuda":
+                counted[dtype] = dict(LAUNCHES)
+        simt = counted[dtype].get("flash_attention", 0)
+        if simt != cfg.num_layers or counted[dtype].get("flash_attention_sm90", 0):
+            fail(f"smoke prefill on the card launched flash {simt} times, sm90 "
+                 f"{counted[dtype].get('flash_attention_sm90', 0)}, not "
+                 f"{cfg.num_layers} simt launches")
         gap, scale = _scale_gap(torch, logits["cuda"], logits["cpu"])
         if dtype == torch.float32:
             ok = torch.allclose(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-4)
@@ -675,6 +790,9 @@ def check_smoke_card_vs_cpu(torch):
               f"steps): max |diff| {gap:.3e} on logits up to {scale:.3f}")
         if not ok:
             fail(f"smoke llama3-8b logits differ between card and CPU ({dtype})")
+    print(f"smoke launches (card, fp32): "
+          f"{json.dumps(counted[torch.float32], sort_keys=True)}")
+    return counted[torch.float32]["flash_attention"]
 
 
 # ------------------------------------------------------------------ main
@@ -712,8 +830,11 @@ def main() -> int:
     print(f"build: {sorted(logs) or 'cached'} in {time.perf_counter() - t0:.2f} s")
     for src, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {src}: {line.strip()}")
+    smem = build.load("flash_attention_sm90").flash_attention_sm90_smem_bytes
+    print("  flash_attention_sm90 dynamic shared memory a block: " + ", ".join(
+        f"Dh {dh} {smem(dh)} B" for dh in (64, 128, 256)))
 
     # phase 3: kernels against their plain versions, and their times (the
     # flash plain version at B 4 needs ~17 GB: before the model is on the card)
@@ -723,7 +844,10 @@ def main() -> int:
     wf_err = check_wfedavg(torch)
     fa_err = check_flash(torch)
     times = time_kernels(torch, params)
-    times["flash_attention"] = time_flash(torch)
+    times["flash_attention_sm90"] = time_flash(torch, *FLASH_MAIN)["sm90"]
+    gemma = time_flash(torch, *FLASH_GEMMA_LOCAL, plain_iters=2)
+    times["flash_attention"] = time_flash(torch, *smoke_flash_shape(),
+                                          dtype="float32")["simt"]
 
     # phase 4: the LeNet main path, counted
     launches = run_main_path(torch)
@@ -734,7 +858,7 @@ def main() -> int:
 
     # phase 6: the serving path, counted
     out, serve_launches = run_serving(torch)
-    launches["flash_attention"] = serve_launches["flash_attention"]
+    launches["flash_attention_sm90"] = serve_launches["flash_attention_sm90"]
 
     # phase 7: prefill-then-decode consistency at full size, then where the
     # serving path's time goes
@@ -743,8 +867,9 @@ def main() -> int:
     del out
     torch.cuda.empty_cache()
 
-    # phase 8: the card (kernel) against the CPU (plain version) at smoke size
-    check_smoke_card_vs_cpu(torch)
+    # phase 8: the card (kernel) against the CPU (plain version) at smoke
+    # size, the simt flash kernel's path (fp32, Dh 16), counted
+    launches["flash_attention"] = check_smoke_card_vs_cpu(torch)
 
     # phase 9: report
     kernels = []
@@ -756,8 +881,13 @@ def main() -> int:
             ("wfedavg", "src/repro_torch/csrc/wfedavg.cu",
              "src/repro/kernels/wfedavg/wfedavg.py:31", wf_err),
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/flash_attention.py:82", fa_err)):
+             "src/repro/kernels/flash_attention/flash_attention.py:82",
+             fa_err["simt", "float32"]),
+            ("flash_attention_sm90", "src/repro_torch/csrc/flash_attention_sm90.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:82",
+             fa_err["sm90", "bfloat16"])):
         t = times[kname]
+        err = max(err, t.get("max_abs_err", 0.0))
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[kname],
                         "max_abs_err": err, "ms": t["ms"],
@@ -767,6 +897,8 @@ def main() -> int:
                         "timing": t["timing"]})
     f2 = times["wfedavg@f2"]
     print("wfedavg at f2.w: " + json.dumps(f2, sort_keys=True))
+    print("flash at gemma3 local heads: " + json.dumps(
+        gemma, sort_keys=True))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

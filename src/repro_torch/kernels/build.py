@@ -3,8 +3,14 @@
 Each ``repro_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at the root
 of the checkout, at first use, then loaded with ``ctypes``. The library
-file name carries a hash of the source, so an edited source is rebuilt and
-a stale library is never loaded. Nothing is compiled or loaded on import.
+file name carries a hash of the source and of every header under ``csrc/``
+(``*.cuh``), so an edited source or header is rebuilt and a stale library
+is never loaded. Nothing is compiled or loaded on import.
+
+``flash_attention_sm90.cu`` builds its TMA tensor maps with the driver's
+``cuTensorMapEncodeTiled``, fetched at run time through the runtime's
+``cudaGetDriverEntryPoint``: no library links ``-lcuda``, and each keeps the
+plain C interface that ``ctypes`` loads.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("quantize", "wfedavg", "flash_attention")
+SOURCES = ("quantize", "wfedavg", "flash_attention", "flash_attention_sm90")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -42,7 +48,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "flash_attention_fwd_f32": _FLASH,
         "flash_attention_fwd_bf16": _FLASH,
     },
+    "flash_attention_sm90": {
+        "flash_attention_fwd_sm90_bf16": _FLASH,
+        "flash_attention_sm90_smem_bytes": [_I],
+    },
 }
+# flash_attention_sm90 returns ENCODE_FAILED + the CUresult when
+# cuTensorMapEncodeTiled refuses a tensor map
+ENCODE_FAILED = 10000
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -61,8 +74,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(name: str, out: Path, compiler: str = "nvcc") -> List[str]:
@@ -129,5 +145,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(status: int, what: str) -> None:
+    if status >= ENCODE_FAILED:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{status - ENCODE_FAILED}")
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {status}")

@@ -4,14 +4,16 @@ Port of the forward of the JAX package's ``models/flash.py``
 (``flash_attention_padded`` / ``_fwd_impl``). There the Pallas kernel
 ``kernels/flash_attention`` "implements the same forward" and is not
 called by the model; here the forward IS the kernel: CUDA tensors launch
-``csrc/flash_attention.cu`` through ``kernels.flash_attention.ops``, CPU
-tensors take its plain version. The kernel masks the ragged edge itself,
-so nothing is padded, and it picks its own tiles (no block sizes here).
+one of the two flash kernels through ``kernels.flash_attention.ops``
+(``csrc/flash_attention_sm90.cu`` for bf16 at head dims 64 / 128 / 256,
+``csrc/flash_attention.cu`` otherwise), CPU tensors take the plain
+version. The kernels mask the ragged edge themselves, so nothing is
+padded, and pick their own tiles (no block sizes here).
 
-Numerics: in bf16 the JAX forward casts p to v's dtype before P.V; the
-kernel and its plain version keep p in fp32 (as the Pallas kernel does),
-so bf16 results differ at bf16 rounding by design. In fp32 they agree to
-summation order.
+Numerics: in bf16 the JAX forward casts p to v's dtype before P.V, and so
+does the sm90 kernel; the other kernel and the plain version keep p in
+fp32 (as the Pallas kernel does), so bf16 results differ at bf16 rounding
+by design. In fp32 they agree to summation order.
 
 The recompute backward (``_bwd``, ``_bwd_tri``) comes with training; until
 then a backward through this function raises.

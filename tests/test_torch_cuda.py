@@ -108,3 +108,57 @@ def test_flash_attention_kernel_takes_strided_inputs(cuda):
         ops.flash_attention(q[..., :12], k[..., :12], v[..., :12])   # Dh 12
     with pytest.raises(TypeError):
         ops.flash_attention(q.half(), k.half(), v.half())
+
+
+@pytest.mark.parametrize("B,Sq,H,KH,Dh,causal,window", [
+    (1, 512, 32, 8, 128, True, 0),       # llama3's heads
+    (2, 200, 4, 2, 64, False, 0),        # bidirectional, ragged S
+    (1, 200, 8, 2, 128, True, 0),        # ragged S inside one key tile
+    (1, 4095, 8, 2, 128, True, 0),       # ragged S, the consistency check's length
+    (1, 512, 16, 8, 256, True, 128),     # gemma3's local heads, a window
+    (1, 1000, 4, 2, 256, True, 0),       # Dh 256, ragged
+    (1, 300, 8, 1, 128, True, 0),        # KH = 1
+    (1, 300, 8, 8, 64, True, 100),       # KH = H, a window
+])
+def test_flash_attention_sm90_kernel_vs_plain(cuda, B, Sq, H, KH, Dh, causal,
+                                              window):
+    """The Hopper kernel (bf16 wgmma, TMA) against the plain version at one
+    bf16 ulp (it rounds p to bf16 before P.V, as the JAX model does)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator().manual_seed(Sq * H + Dh + window)
+    q = torch.randn((B, Sq, H, Dh), generator=g).to(cuda, torch.bfloat16)
+    k = torch.randn((B, Sq, KH, Dh), generator=g).to(cuda, torch.bfloat16)
+    v = torch.randn((B, Sq, KH, Dh), generator=g).to(cuda, torch.bfloat16)
+    assert ops._variant(q, k, v) == "sm90"
+    reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_sm90"] == 1 and LAUNCHES["flash_attention"] == 1
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(), rtol=1.6e-2, atol=1.6e-2)
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+def test_flash_attention_sm90_takes_fused_projection_views(cuda, Dh):
+    """q, k, v as views of one fused projection output: the strides reach
+    the tensor maps as they are (no copy), and a view TMA cannot take goes
+    to the simt kernel."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator().manual_seed(Dh)
+    qkv = torch.randn((2, 333, 8 + 2 + 2, Dh), generator=g).to(cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    reset_launches()
+    out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_sm90"] == 1
+    torch.testing.assert_close(out.float(), attention_ref(q, k, v).float(),
+                               rtol=1.6e-2, atol=1.6e-2)
+    flat = qkv.reshape(-1)[2:2 + q.numel()].view(q.shape)    # 4-byte base offset
+    reset_launches()
+    ops.flash_attention(flat, flat[:, :, :2], flat[:, :, 2:4])
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1 and LAUNCHES["flash_attention_sm90"] == 0

@@ -104,6 +104,67 @@ def test_model_forward_has_no_backward_yet():
         out.sum().backward()
 
 
+def _views(case):
+    """q, k, v (B 2, S 16, H 4, KH 2) on the CPU as ``case`` lays them out."""
+    dh = {"dh64": 64, "dh256": 256, "dh16": 16, "dh80": 80}.get(case.split()[-1], 128)
+    dtype = torch.float32 if case.startswith("fp32") else torch.bfloat16
+    if case.startswith("fused"):        # one (B, S, H + 2 KH, Dh) projection
+        qkv = torch.zeros((2, 16, 8, dh), dtype=dtype)
+        return qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    if case.startswith("offset"):       # base 2 elements past an aligned one
+        n = 2 * 16 * 4 * dh
+        buf = torch.zeros(2 + 2 * n, dtype=dtype)
+        q = buf[2:2 + n].view(2, 16, 4, dh)
+        return q, q[:, :, :2], q[:, :, 2:]
+    if case.startswith("stride"):       # head stride Dh + 4: not a multiple of 8
+        x = torch.zeros((2, 16, 4, dh + 4), dtype=dtype)[..., :dh]
+        return x, x[:, :, :2], x[:, :, 2:]
+    return (torch.zeros((2, 16, 4, dh), dtype=dtype),
+            torch.zeros((2, 16, 2, dh), dtype=dtype),
+            torch.zeros((2, 16, 2, dh), dtype=dtype))
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16 contiguous dh64", "sm90"), ("bf16 contiguous dh128", "sm90"),
+    ("bf16 contiguous dh256", "sm90"), ("fused bf16 dh64", "sm90"),
+    ("fused bf16 dh128", "sm90"), ("fused bf16 dh256", "sm90"),
+    ("fp32 contiguous dh128", "simt"), ("fp32 fused dh64", "simt"),
+    ("bf16 contiguous dh16", "simt"), ("bf16 contiguous dh80", "simt"),
+    ("offset bf16 dh128", "simt"), ("stride bf16 dh128", "simt"),
+])
+def test_routing_rule(case, want):
+    """bf16 at Dh 64/128/256 with TMA-legal bases and strides goes to the
+    Hopper kernel; fp32, other head dims and misaligned views to the simt
+    kernel. Decided from the tensors alone, before any launch."""
+    q, k, v = _views(case)
+    assert ops._variant(q, k, v) == want
+    reset_launches()
+    ops.flash_attention(q, k, v)          # CPU: the plain version, whatever the rule
+    assert sum(LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_chip_smoke_simt_view_goes_to_simt(dh):
+    """chip_smoke holds and times the simt kernel in bf16 on copies whose
+    base lies 8 bytes past an aligned one: the routing rule sends them to
+    the simt kernel at every head dim the sm90 kernel takes, and the values
+    are the originals."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    qkv = _views(f"bf16 contiguous dh{dh}")
+    qkv = tuple(x.normal_() for x in qkv)
+    assert ops._variant(*qkv) == "sm90"
+    views = tuple(chip_smoke._simt_view(torch, x) for x in qkv)
+    assert ops._variant(*views) == "simt"
+    for x, y in zip(qkv, views):
+        assert y.data_ptr() % 16 == 8 and torch.equal(x, y)
+
+
 def test_wrapper_rejects_mismatched_shapes():
     q, k, v = (_t(x) for x in _qkv(0, 1, 8, 8, 3, 2, 8))
     with pytest.raises(ValueError):

@@ -139,3 +139,21 @@ def test_kernel_build_command_targets_hopper():
         assert (build.CSRC / f"{name}.cu").is_file()
         assert build.library_path(name).parent == build.BUILD_DIR
         assert set(build.SIGNATURES[name])   # every source exports functions
+
+
+def test_library_path_hashes_the_headers(tmp_path, monkeypatch):
+    """An edited header under csrc/ renames every library, so the next call
+    rebuilds instead of loading a stale one; the sources stay as they are."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    assert (csrc / "sm90.cuh").is_file()
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    assert before == {n: build.library_path(n) for n in build.SOURCES}
+    header = csrc / "sm90.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    after = {n: build.library_path(n) for n in build.SOURCES}
+    assert all(after[n] != before[n] for n in build.SOURCES)
+    (csrc / "extra.cuh").write_bytes(b"// new header\n")
+    assert build.library_path("flash_attention_sm90") != after["flash_attention_sm90"]
