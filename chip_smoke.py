@@ -10,9 +10,18 @@ prints its last line):
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, started together) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes its path gives it: quantize/dequantize bitwise on every
-   LeNet leaf's last-axis blocking, on flat 256-column rows, on a ragged
-   row count and on bf16; wfedavg within rtol/atol 1e-6 at N = 10 and
+   shapes its path gives it: quantize/dequantize bitwise through the row
+   API on every LeNet leaf's last-axis blocking, on flat 256-column rows,
+   on a ragged row count, on bf16 and with bf16 output, and through the
+   tree API (one launch a direction for a whole tree, against the plain
+   version that walks the same segment table) on the LeNet params, an odd
+   tree (0-d and zero-size leaves), ragged last axes, bf16 and mixed
+   trees, 70 leaves (two launches) and leaves 4 bytes off alignment; the
+   tree kernels timed on the LeNet tree beside the same tree through the
+   row API one leaf at a time, one broadcast's round trip in turns with
+   the parent's per-leaf sequence (device time, CUDA-event time, device
+   kernels a call), and both kernels at one llama3-8b decoder layer's
+   weights (2.18e8 fp32 elements, bandwidth-bound); wfedavg within rtol/atol 1e-6 at N = 10 and
    D = 94 080 / 10 080 and on ragged and misaligned D; flash attention on
    llama3's and gemma3's local heads at S = 4096, a bidirectional, two
    ragged (S 1000 and 4095), a KH = 1 and a KH = H case, each kernel
@@ -29,12 +38,14 @@ prints its last line):
    10 nodes, 20% gaussian random-model poisoners, Dirichlet(1) shards,
    kregular(10, 2), ttl 2, 108 ticks) with int8 wire payloads and the
    wfedavg kernel (``use_kernel=True``) on the heap simulator; launch
-   counts are zeroed just before it and read just after, and every kernel
-   must have launched;
+   counts are zeroed just before it and read just after, every kernel
+   must have launched, and quantize and dequantize once a broadcast
+   (``tx_sent``);
 5. a small federation run on the card (kernels) and on the CPU (plain
-   versions) from the same params must agree; then a 36-tick window of
-   the main path is profiled (device busy/idle share, host split by
-   function);
+   versions) from the same params must agree; one ``roundtrip_tree`` of
+   the LeNet params must run exactly two device kernels; then a 36-tick
+   window of the main path is profiled (device busy/idle share, host
+   split by function);
 6. the serving path: ``python -m repro_torch.serve`` with llama3-8b at full
    width and depth (8.03 B random fp32 params and their bf16 copy), B 4
    prompts x P 4096 tokens, then 32 greedy decode steps; counts zeroed just
@@ -57,6 +68,7 @@ repository's ``src/repro_torch`` is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -66,6 +78,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+PROFILE_PAD_S = 0.02             # idle host time before a profiled body
+ABSORB = 64                      # tiny kernels that open a profiled window
 
 
 def fail(msg: str) -> None:
@@ -97,21 +111,63 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+MEASURED = "chip_smoke.measured"
+
+
+@contextlib.contextmanager
+def profiled():
+    """A ``torch.profiler`` window over the CPU and the card whose device
+    events are read with ``measured_events``; the code to measure runs in
+    the ``with`` body.
+
+    On the H100, once CUDA timing events had been used in the process,
+    every profiler session dropped the device records it collected first
+    (from a few kernels up to a whole burst). So the window opens with a
+    burst of ABSORB tiny kernels, a synchronize and PROFILE_PAD_S of idle
+    time, and the body runs inside a ``record_function`` range: only device
+    events that start after that range begins are counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pad = torch.zeros(1, device="cuda")
+        for _ in range(ABSORB):
+            pad.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        with record_function(MEASURED):
+            yield prof
+
+
+def measured_events(prof):
+    """Device events (kernels, copies, memsets) of a ``profiled`` window's
+    body."""
+    import torch
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == MEASURED and e.device_type == cpu)
+    return [e for e in events if e.device_type == cuda and e.name != MEASURED
+            and e.time_range.start >= start]
+
+
+def _device_events(fn, calls: int, warmup: int = 10):
+    """Device events of ``calls`` calls of ``fn``, after ``warmup`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return measured_events(prof)
+
+
 def device_ms(fn, iters: int):
     """(ms, method, kernel names): device time per call, the sum of every
     kernel and copy the profiler saw on the card over ``iters`` calls; CUDA
     events when the profiler records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    on_card = [e for e in prof.events() if getattr(e, "device_type", None) == cuda]
+    on_card = _device_events(fn, iters)
     total_us = sum(e.time_range.elapsed_us() for e in on_card)
     names = sorted({e.name for e in on_card})
     if total_us > 0:
@@ -172,7 +228,103 @@ def check_quantize(torch, lenet_params):
     q8 = q_ops.quantize_rows(ragged[8:9])[0][0, :6].tolist()
     if q8 != [127, 0, 2, 2, 0, -2]:
         fail(f"half-to-even rounding broken: {q8}")
+    # the row API's bf16 output (the Pallas dequantize's dtype=)
+    qk, sk = q_ops.quantize_rows(ragged)
+    for s_in in (sk, sk.to(torch.bfloat16)):
+        if not torch.equal(q_ops.dequantize_rows(qk, s_in, dtype=torch.bfloat16),
+                           dequantize_ref(qk, s_in, torch.bfloat16)):
+            fail(f"dequantize kernel (bf16 out, {s_in.dtype} scales) != plain")
+    print("dequantize rows bf16 out, fp32 and bf16 scales: bitwise OK")
+    check_quantize_trees(torch, lenet_params, ragged)
     return q_err, dq_err
+
+
+def _tree_cases(torch, lenet_params, ragged):
+    """The trees phase 3 holds the tree kernels to: the LeNet params (the
+    main path's), an odd tree (0-d, zero-size leaves), ragged last axes
+    (300, 520, 257: masked tails), a bf16 tree and a mixed one, 70 leaves
+    (two launches a direction), and LeNet's leaves 4 bytes past an aligned
+    base (the scalar path)."""
+    from repro_torch import tree
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(*shape, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device="cuda") * 3.0).to(dtype)
+
+    def shifted(x):
+        off = 4 // x.element_size()
+        return torch.empty(off + x.numel(), dtype=x.dtype,
+                           device="cuda")[off:].view(x.shape).copy_(x)
+
+    lenet = tree.leaves(lenet_params)
+    return {
+        "lenet": lenet,
+        "odd": [rnd(), rnd(4, 0), rnd(0, 5), rnd(6)],
+        "ragged": [rnd(5, 300), rnd(2, 3, 520), rnd(3, 257), ragged[:, :77]],
+        "bf16": [x.to(torch.bfloat16) for x in lenet] + [rnd(4, 520, dtype=torch.bfloat16)],
+        "mixed": [rnd(120, dtype=torch.bfloat16), rnd(32, 120), rnd(7, 10),
+                  rnd(4, 520, dtype=torch.bfloat16)],
+        "70 leaves": [rnd((i % 5) + 1, 4 + 3 * i) for i in range(70)],
+        "lenet +4 bytes": [shifted(x) for x in lenet],
+    }
+
+
+def check_quantize_trees(torch, lenet_params, ragged):
+    """The tree kernels bitwise against the plain version that walks the
+    same segment table, on every tree of ``_tree_cases``."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.quantize import ref as q_ref
+    from repro_torch.kernels.quantize import table
+
+    for name, leaves in _tree_cases(torch, lenet_params, ragged).items():
+        specs = [(tuple(x.shape), x.dtype) for x in leaves]
+        plan = table.plan_for(leaves, 256)
+        before = LAUNCHES["quantize"], LAUNCHES["dequantize"]
+        pairs = q_ops.quantize_tree(leaves)
+        outs = q_ops.dequantize_tree(pairs, specs)
+        torch.cuda.synchronize()
+        counted = (LAUNCHES["quantize"] - before[0], LAUNCHES["dequantize"] - before[1])
+        if counted != (len(plan.groups),) * 2:
+            fail(f"tree {name}: {counted} launches for {len(plan.groups)} groups")
+        for (q, s), (qr, sr) in zip(pairs, q_ref.quantize_tree_ref(leaves, 256)):
+            if not (torch.equal(q, qr) and torch.equal(s, sr)):
+                fail(f"quantize tree kernel != plain on tree {name}")
+        want = q_ref.dequantize_tree_ref(pairs, specs)
+        for got in (outs, q_ops.roundtrip_tree(leaves)):
+            for o, w in zip(got, want):
+                if o.dtype != w.dtype or not torch.equal(o, w):
+                    fail(f"dequantize tree kernel != plain on tree {name}")
+        vec = sum(int(v) for g in plan.groups for v in g.vec_ok)
+        print(f"quantize/dequantize tree {name:15s} {len(leaves):2d} leaves, "
+              f"{plan.n_scales:5d} rows, {len(plan.groups)} launch(es) a "
+              f"direction, {vec} segment(s) vector-eligible: bitwise OK")
+
+
+def _per_leaf_roundtrip(torch, leaves):
+    """The parent's wire round trip, rebuilt from the row API: per leaf a
+    pad where the last axis is ragged, the quantize kernel, the fp32 scales
+    cast to bf16 and back, the dequantize kernel, the slice."""
+    from repro_torch.core import compression
+    from repro_torch.kernels.quantize import ops as q_ops
+    out = []
+    for x in leaves:
+        lead, last, b, nblocks = compression._last_axis_blocking(tuple(x.shape))
+        xf = x.reshape(*lead, last)
+        if nblocks * b > last:
+            xf = torch.nn.functional.pad(xf.to(torch.float32), (0, nblocks * b - last))
+        q, s = q_ops.quantize_rows(xf.reshape(-1, b))
+        s16 = s.reshape(*lead, nblocks).to(torch.bfloat16)
+        y = q_ops.dequantize_rows(q, s16.to(torch.float32).reshape(-1, 1))
+        out.append(y.reshape(*lead, nblocks * b)[..., :last].reshape(x.shape).to(x.dtype))
+    return out
+
+
+def _tree_bytes(plan, leaves):
+    """Bytes a tree quantize (or dequantize) must move: every leaf once in
+    its own type, the packed q and the bf16 scales once."""
+    return sum(x.numel() * x.element_size() for x in leaves) + plan.q_bytes \
+        + 2 * plan.n_scales
 
 
 def check_wfedavg(torch):
@@ -200,20 +352,20 @@ def check_wfedavg(torch):
 
 
 def time_kernels(torch, lenet_params):
-    """Times at the main path's largest shapes (LeNet f1.w) and the f2.w
-    FedAvg leaf; returns the per-kernel rows of the JSON line."""
+    """Times on the main path's tree (LeNet's params, one broadcast) and
+    the f2.w FedAvg leaf, then the tree kernels at a bandwidth-bound size;
+    returns the per-kernel rows of the JSON line."""
+    from repro_torch import tree
     from repro_torch.kernels.quantize import ops as q_ops
-    from repro_torch.kernels.quantize.ref import dequantize_ref, quantize_ref
+    from repro_torch.kernels.quantize import ref as q_ref
+    from repro_torch.kernels.quantize import table
     from repro_torch.kernels.wfedavg import ops as wf_ops
     from repro_torch.kernels.wfedavg.ref import wfedavg_ref
 
     iters = 200
-    x = lenet_params["f1"]["w"].contiguous()            # (784, 120)
-    r, c = x.shape
-    q, s = q_ops.quantize_rows(x)
     rows = {}
 
-    def row(name, fn, plain, library, nbytes, ops, shape):
+    def row(name, fn, plain, library, nbytes, ops, shape, **extra):
         ms, method, names = device_ms(fn, iters)
         plain_ms, plain_method, _ = device_ms(plain, iters)
         lib_ms, lib_method = None, "-"
@@ -224,17 +376,48 @@ def time_kernels(torch, lenet_params):
         timing = f"{method}/{plain_method}/{lib_method}"
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by, call_ms=call,
-                          shape=shape, timing=timing)
+                          shape=shape, timing=timing, **extra)
         lib = "null" if lib_ms is None else f"{lib_ms:.5f}"
-        print(f"time {name:10s} {shape:24s} kernel_ms={ms:.5f} "
-              f"plain_ms={plain_ms:.5f} library_ms={lib} bound_ms={b_ms:.6f} "
-              f"({b_by}) call_ms={call:.5f} [{timing}; kernel events {names}]")
+        print(f"time {name:10s} {shape:24s} kernel_ms={ms:.7f} "
+              f"plain_ms={plain_ms:.5f} library_ms={lib} bound_ms={b_ms:.7f} "
+              f"({b_by}, {nbytes} B) call_ms={call:.5f} [{timing}; kernel "
+              f"events {names}]")
 
-    row("quantize", lambda: q_ops.quantize_rows(x), lambda: quantize_ref(x), None,
-        r * c * 4 + r * c + r * 4, 6 * r * c, f"({r}, {c}) fp32")
-    row("dequantize", lambda: q_ops.dequantize_rows(q, s),
-        lambda: dequantize_ref(q, s), lambda: torch.mul(q, s),
-        r * c + r * 4 + r * c * 4, r * c, f"({r}, {c}) int8")
+    # the LeNet tree: the kernels of one broadcast, beside the same tree
+    # through the row API one leaf at a time (what the parent launched)
+    leaves = tree.leaves(lenet_params)
+    specs = [(tuple(x.shape), x.dtype) for x in leaves]
+    plan = table.plan_for(leaves, 256)
+    pairs = q_ops.quantize_tree(leaves)
+    blocked = [x.reshape(-1, x.shape[-1]) for x in leaves]   # LeNet: b == last
+    row_pairs = [q_ops.quantize_rows(x) for x in blocked]
+    per_leaf = {
+        "quantize": device_ms(lambda: [q_ops.quantize_rows(x) for x in blocked],
+                              iters)[0],
+        "dequantize": device_ms(lambda: [q_ops.dequantize_rows(q, s)
+                                         for q, s in row_pairs], iters)[0]}
+    nbytes = _tree_bytes(plan, leaves)
+    n = sum(x.numel() for x in leaves)
+    shape = f"LeNet tree, {len(leaves)} leaves, {plan.n_scales} rows, fp32"
+    row("quantize", lambda: q_ops.quantize_tree(leaves),
+        lambda: q_ref.quantize_tree_ref(leaves, 256), None, nbytes, 6 * n, shape,
+        per_leaf_ms=per_leaf["quantize"])
+    row("dequantize", lambda: q_ops.dequantize_tree(pairs, specs),
+        lambda: q_ref.dequantize_tree_ref(pairs, specs), None, nbytes, n, shape,
+        per_leaf_ms=per_leaf["dequantize"])
+    print(f"per-leaf row API over the LeNet tree (10 launches a direction, "
+          f"device time a tree): quantize {per_leaf['quantize']:.7f} ms, "
+          f"dequantize {per_leaf['dequantize']:.7f} ms")
+    # one leaf through the row API at f1.w, the shape PRs 11-13 timed
+    f1 = lenet_params["f1"]["w"].contiguous()
+    q1, s1 = q_ops.quantize_rows(f1)
+    print(f"row API at f1.w (784, 120): quantize "
+          f"{device_ms(lambda: q_ops.quantize_rows(f1), iters)[0]:.7f} ms, "
+          f"dequantize {device_ms(lambda: q_ops.dequantize_rows(q1, s1), iters)[0]:.7f} ms"
+          f", torch.mul {device_ms(lambda: torch.mul(q1, s1), iters)[0]:.7f} ms")
+    time_roundtrip(torch, leaves, iters)
+    rows["quantize"]["llama3_layer"], rows["dequantize"]["llama3_layer"] = \
+        time_llama3_layer(torch)
     g = torch.Generator().manual_seed(3)
     for name, d in (("wfedavg", 94080), ("wfedavg@f2", 10080)):
         n = 10
@@ -247,6 +430,100 @@ def time_kernels(torch, lenet_params):
                                                       alpha=0.5),
             (n + 2) * d * 4 + n * 4, 2 * n * d + 2 * d, f"N={n} D={d} fp32")
     return rows
+
+
+def _kernels_a_call(torch, fn):
+    """Names of the device events (kernels, copies, memsets) the profiler
+    sees in one call of ``fn``, after warm-up calls."""
+    return [e.name for e in _device_events(fn, 1, warmup=3)]
+
+
+def time_roundtrip(torch, leaves, iters):
+    """One broadcast's wire round trip on the LeNet tree, in turns in this
+    run (per-leaf, tree, tree, per-leaf; then the plain version): device
+    time a call from the profiler, wall time a call by CUDA events (host
+    launch cost included), and the device kernels a call."""
+    from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.quantize import ref as q_ref
+    from repro_torch.kernels.quantize import table
+
+    plan = table.plan_for(leaves, 256)
+    ways = {"per-leaf": lambda: _per_leaf_roundtrip(torch, leaves),
+            "tree": lambda: q_ops.roundtrip_tree(leaves),
+            "plain": lambda: q_ref.roundtrip_tree_ref(leaves, 256)}
+    for a, b in zip(ways["per-leaf"](), ways["tree"]()):
+        if not torch.equal(a, b):
+            fail("per-leaf and tree round trips differ")
+    got = {}
+    for way in ("per-leaf", "tree", "tree", "per-leaf", "plain"):
+        dev, _, _ = device_ms(ways[way], iters)
+        ev = event_ms(ways[way], iters)
+        got.setdefault(way, []).append((dev, ev))
+        print(f"roundtrip_tree LeNet {way:8s}: device {dev:.7f} ms, events "
+              f"{ev:.5f} ms a call")
+    kernels = {way: len(_kernels_a_call(torch, fn)) for way, fn in ways.items()}
+    med = {w: (sum(d for d, _ in v) / len(v), sum(e for _, e in v) / len(v))
+           for w, v in got.items()}
+    b_ms = 2 * _tree_bytes(plan, leaves) / HBM_BYTES_PER_S * 1e3
+    print(f"roundtrip LeNet tree, mean of the turns: per-leaf device "
+          f"{med['per-leaf'][0]:.7f} ms / events {med['per-leaf'][1]:.5f} ms "
+          f"({kernels['per-leaf']} device kernels a call); tree device "
+          f"{med['tree'][0]:.7f} ms / events {med['tree'][1]:.5f} ms "
+          f"({kernels['tree']} device kernels a call); plain device "
+          f"{med['plain'][0]:.7f} ms / events {med['plain'][1]:.5f} ms "
+          f"({kernels['plain']}); tree vs per-leaf: {med['per-leaf'][0] / med['tree'][0]:.2f}x "
+          f"less device time, {med['per-leaf'][1] / med['tree'][1]:.2f}x by events; "
+          f"bound both ways {b_ms:.7f} ms")
+
+
+def time_llama3_layer(torch):
+    """The tree kernels where bandwidth bounds them: random fp32 tensors
+    shaped like one llama3-8b decoder layer's weights as
+    ``transformer.init`` lays them out (its stacked units without the layer
+    axis), each kernel held bitwise to the plain version first."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.quantize import ref as q_ref
+    from repro_torch.kernels.quantize import table
+    from repro_torch.models import transformer
+
+    meta = transformer.init(torch.Generator(), get_config("llama3-8b"), "meta")
+    shapes = [tuple(x.shape[1:]) for x in tree.leaves(meta["units"])]
+    g = torch.Generator(device="cuda").manual_seed(8)
+    leaves = [torch.randn(s, generator=g, device="cuda") * 0.02 for s in shapes]
+    specs = [(tuple(x.shape), x.dtype) for x in leaves]
+    plan = table.plan_for(leaves, 256)
+    n = sum(x.numel() for x in leaves)
+    pairs = q_ops.quantize_tree(leaves)
+    for (q, s), (qr, sr) in zip(pairs, q_ref.quantize_tree_ref(leaves, 256)):
+        if not (torch.equal(q, qr) and torch.equal(s, sr)):
+            fail("quantize tree kernel != plain at the llama3-8b layer")
+    for o, w in zip(q_ops.dequantize_tree(pairs, specs),
+                    q_ref.dequantize_tree_ref(pairs, specs)):
+        if not torch.equal(o, w):
+            fail("dequantize tree kernel != plain at the llama3-8b layer")
+    nbytes = _tree_bytes(plan, leaves)
+    b_ms, b_by = bound_ms(nbytes, 6 * n)
+    out = {}
+    for name, fn, plain in (
+            ("quantize", lambda: q_ops.quantize_tree(leaves),
+             lambda: q_ref.quantize_tree_ref(leaves, 256)),
+            ("dequantize", lambda: q_ops.dequantize_tree(pairs, specs),
+             lambda: q_ref.dequantize_tree_ref(pairs, specs))):
+        ms, method, names = device_ms(fn, 20)
+        plain_ms, _, _ = device_ms(plain, 3)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         share=b_ms / ms, bytes=nbytes, elements=n,
+                         leaves=len(leaves), rows=plan.n_scales)
+        print(f"time {name} llama3-8b layer ({len(leaves)} leaves, {n} fp32 "
+              f"elements, {plan.n_scales} rows, {nbytes} B): kernel_ms={ms:.5f} "
+              f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) -> "
+              f"{b_ms / ms:.4f} of its bound, {nbytes / ms / 1e9:.4f} TB/s "
+              f"[{method}; {names}]")
+    del leaves, pairs
+    torch.cuda.empty_cache()
+    return out["quantize"], out["dequantize"]
 
 
 # (name, B, S, H, KH, Dh, causal, window): the serving path's heads and a
@@ -459,6 +736,10 @@ def run_main_path(torch):
     for k in ("quantize", "dequantize", "wfedavg"):
         if launches.get(k, 0) <= 0:
             fail(f"kernel {k} was not launched on the main path")
+    for k in ("quantize", "dequantize"):       # one launch a broadcast
+        if launches[k] != st["tx_sent"]:
+            fail(f"{k} launched {launches[k]} times for {st['tx_sent']} "
+                 "broadcasts, not once each")
     if st["fedavg_rounds"] <= 0:
         fail("no FedAvg round on the main path")
     for nd in nodes:
@@ -529,6 +810,16 @@ def check_small_federation(torch):
           f"max |param diff| {worst:.3e}, boundary-flip fraction {flips:.2e} OK")
 
 
+def check_roundtrip_kernels(torch, lenet_params):
+    """One broadcast's wire round trip runs exactly two device kernels."""
+    from repro_torch.core import compression
+    names = _kernels_a_call(torch, lambda: compression.roundtrip_tree(lenet_params))
+    print(f"device kernels in one roundtrip_tree of the LeNet params: "
+          f"{len(names)} {names}")
+    if len(names) != 2:
+        fail(f"roundtrip_tree ran {len(names)} device kernels, not 2")
+
+
 def profile_window(torch, ticks: int = 36):
     """Where the main path's time goes, on two fresh runs of its first
     ``ticks`` ticks (after the main path warmed the card): the device's busy
@@ -536,8 +827,6 @@ def profile_window(torch, ticks: int = 36):
     cProfile. Both profilers slow the host, so the shares are approximate."""
     import cProfile
     import pstats
-
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.chain import scenarios
     from repro_torch.core.reputation import IMPL2
@@ -550,16 +839,14 @@ def profile_window(torch, ticks: int = 36):
 
     sim = fresh()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
+        t0 = time.perf_counter()
         sim.run()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
+        wall = time.perf_counter() - t0
     by_name = {}
-    for e in prof.events():
-        if getattr(e, "device_type", None) == cuda:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+    for e in measured_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
     busy = sum(by_name.values())
     print(f"profile window ({ticks} ticks, profiler on): wall {wall:.3f} s, "
           f"device busy {busy:.4f} s, device idle share {1 - busy / wall:.4f}")
@@ -671,8 +958,6 @@ def profile_serving(torch, out, steps: int = 8):
     """Where the serving path's time goes: one prefill, then ``steps``
     decode steps, each window under the profiler (device busy/idle share,
     top device ops, the flash kernel's share of prefill device time)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
 
@@ -680,20 +965,18 @@ def profile_serving(torch, out, steps: int = 8):
     prompts, weights = out["prompts"], out["weights"]
     B, P = prompts.shape
     cache = transformer.cache_init(cfg, B, P + steps, "cuda")
-    cuda = torch.autograd.DeviceType.CUDA
     shares = {}
 
     def window(name, fn):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+            wall = time.perf_counter() - t0
         by_name = {}
-        for e in prof.events():
-            if getattr(e, "device_type", None) == cuda:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+        for e in measured_events(prof):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
         busy = sum(by_name.values())
         flash = sum(t for n, t in by_name.items()
                     if any(sym in n for sym in FLASH_SYMBOLS))
@@ -854,6 +1137,7 @@ def main() -> int:
 
     # phase 5: a reference on a small input, then where the time goes
     check_small_federation(torch)
+    check_roundtrip_kernels(torch, params)
     profile_window(torch)
 
     # phase 6: the serving path, counted
@@ -894,7 +1178,8 @@ def main() -> int:
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "call_ms": t["call_ms"], "shape": t["shape"],
-                        "timing": t["timing"]})
+                        "timing": t["timing"],
+                        **{k: t[k] for k in ("per_leaf_ms", "llama3_layer") if k in t}})
     f2 = times["wfedavg@f2"]
     print("wfedavg at f2.w: " + json.dumps(f2, sort_keys=True))
     print("flash at gemma3 local heads: " + json.dumps(

@@ -6,20 +6,28 @@ scales ship as bfloat16 and are rounded through bf16 BEFORE q is computed,
 so the scale the receiver multiplies by is the one the sender divided by;
 the ``SCALE_EPS`` clamp keeps all-zero blocks exact.
 
-Each leaf's (..., nblocks, b) blocks are reshaped to (R, b) rows and go
-through ``repro_torch.kernels.quantize.ops``: the CUDA kernels for CUDA
-tensors, the plain version for CPU tensors. Both are bitwise equal to the
-JAX package's module on fp32 inputs.
+A tree's leaves go through ``repro_torch.kernels.quantize.ops`` together:
+one kernel launch quantizes the whole tree into the packed wire (int8 q,
+bf16 scales) and one dequantizes it, for CUDA tensors; the plain version,
+walking the same segment table, for CPU tensors. Both are bitwise equal to
+the JAX package's module.
+
+The leaves ``dequantize_tree`` and ``roundtrip_tree`` return are views of
+one output arena per call, and the q and scales ``quantize_tree`` returns
+views of the two wire arenas. That is safe because nothing writes a
+received payload in place: the simulator hands it to receivers, who
+evaluate it and average it into new tensors (``DFLNode``, ``fedavg``);
+training steps build new tensors as well.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import tree
 from repro_torch.kernels.quantize import ops as q_ops
+from repro_torch.kernels.quantize.table import last_axis_blocking
 
 BLOCK = 256  # quantization block (elements)
 
@@ -28,16 +36,8 @@ SCALE_EPS = 1e-12
 
 
 def _last_axis_blocking(shape, block: int = BLOCK):
-    """shape -> (lead, last, b, nblocks) for the last-axis scheme.
-
-    0-d arrays quantize as one 1-element block; zero-size last axes carry
-    zero blocks (empty in, empty out).
-    """
-    lead = tuple(shape[:-1])
-    last = shape[-1] if len(shape) else 1
-    b = min(block, max(last, 1))
-    nblocks = -(-last // b)  # ceil; 0 when last == 0
-    return lead, last, b, nblocks
+    """shape -> (lead, last, b, nblocks) for the last-axis scheme."""
+    return last_axis_blocking(shape, block)
 
 
 def quantize_last_axis(x, block: int = BLOCK):
@@ -47,51 +47,39 @@ def quantize_last_axis(x, block: int = BLOCK):
     A 0-d leaf is one 1-element block (q (1, 1), scales (1,)); a zero-size
     last axis yields zero blocks (q (*lead, 0, 1), scales (*lead, 0)).
     """
-    lead, last, b, nblocks = _last_axis_blocking(tuple(x.shape), block)
-    xf = x.reshape(*lead, last)
-    if xf.dtype not in (torch.float32, torch.bfloat16):
-        xf = xf.to(torch.float32)
-    pad = nblocks * b - last
-    if pad:
-        xf = F.pad(xf.to(torch.float32), (0, pad))
-    q, scale = q_ops.quantize_rows(xf.reshape(-1, b))
-    return (q.reshape(*lead, nblocks, b),
-            scale.reshape(*lead, nblocks).to(torch.bfloat16))
+    return q_ops.quantize_tree([x], block)[0]
 
 
 def dequantize_last_axis(q, scales, shape, dtype):
-    lead, last, b, nblocks = _last_axis_blocking(tuple(shape), q.shape[-1])
-    if last == 0:
-        return torch.zeros(tuple(shape), dtype=dtype, device=q.device)
-    x = q_ops.dequantize_rows(q.reshape(-1, b),
-                              scales.to(torch.float32).reshape(-1, 1))
-    x = x.reshape(*lead, nblocks * b)[..., :last]
-    return x.reshape(tuple(shape)).to(dtype)
+    return q_ops.dequantize_tree([(q, scales)], [(tuple(shape), dtype)])[0]
 
 
 def _is_qs_pair(x) -> bool:
     return isinstance(x, tuple) and len(x) == 2 and torch.is_tensor(x[0])
 
 
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[1], torch.dtype)
+
+
 def quantize_tree(tree_, block: int = BLOCK):
     """Tree -> (tree of (q, scales), (shape, dtype) spec tree)."""
     spec = tree.map(lambda x: (tuple(x.shape), x.dtype), tree_)
-    qt = tree.map(lambda x: quantize_last_axis(x, block), tree_)
-    return qt, spec
+    pairs = q_ops.quantize_tree(tree.leaves(tree_), block)
+    return tree.unflatten(tree_, pairs), spec
 
 
 def dequantize_tree(qt, spec):
-    return tree.map(
-        lambda qs, sp: dequantize_last_axis(qs[0], qs[1], sp[0], sp[1]),
-        qt, spec, is_leaf=_is_qs_pair)
+    pairs = tree.leaves(qt, is_leaf=_is_qs_pair)
+    out = q_ops.dequantize_tree(pairs, tree.leaves(spec, is_leaf=_is_spec))
+    return tree.unflatten(qt, out, is_leaf=_is_qs_pair)
 
 
 def roundtrip_tree(tree_, block: int = BLOCK):
     """Quantize + immediately dequantize every leaf back to its own dtype:
     the simulators' wire model (the sender quantizes its broadcast once,
     every receiver sees the identical reconstruction)."""
-    qt, spec = quantize_tree(tree_, block)
-    return dequantize_tree(qt, spec)
+    return tree.unflatten(tree_, q_ops.roundtrip_tree(tree.leaves(tree_), block))
 
 
 def leaf_wire_bytes(shape, dtype, compress) -> int:

@@ -36,10 +36,11 @@ _FLASH = [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P]
 # C signatures: every pointer and the stream as c_void_p; status is the
 # launch's cudaGetLastError() (0 = cudaSuccess)
 SIGNATURES: Dict[str, Dict[str, List]] = {
+    # quantize: a host array of segments (quantize/table.py SEGMENT), their
+    # count, the launch's block rows; stream
     "quantize": {
-        "quantize_rows_f32": [_P, _P, _P, _LL, _I, _P],
-        "quantize_rows_bf16": [_P, _P, _P, _LL, _I, _P],
-        "dequantize_rows_f32": [_P, _P, _P, _LL, _I, _P],
+        "quantize_segments": [_P, _I, _LL, _P],
+        "dequantize_segments": [_P, _I, _LL, _P],
     },
     "wfedavg": {
         "wfedavg_f32": [_P, _P, _P, _P, _I, _LL, _P],

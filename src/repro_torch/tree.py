@@ -30,11 +30,11 @@ def leaves(tree, is_leaf: Optional[Callable[[Any], bool]] = None) -> List:
     return out
 
 
-def unflatten(like, new_leaves):
+def unflatten(like, new_leaves, is_leaf: Optional[Callable[[Any], bool]] = None):
     """A tree shaped like ``like`` whose leaves, in ``leaves`` order, are
     ``new_leaves``."""
     it = iter(new_leaves)
-    out = map(lambda _: next(it), like)
+    out = map(lambda _: next(it), like, is_leaf=is_leaf)
     if next(it, None) is not None:
         raise ValueError("unflatten: more leaves than the tree holds")
     return out

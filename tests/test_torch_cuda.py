@@ -40,6 +40,106 @@ def test_quantize_pair_bitwise_vs_plain(cuda, shape, dtype):
     assert LAUNCHES["quantize"] == 1 and LAUNCHES["dequantize"] == 1
 
 
+@pytest.mark.parametrize("shape", [(784, 120), (1001, 256), (3, 1), (64, 6)])
+@pytest.mark.parametrize("scale_dtype", ["float32", "bfloat16"])
+def test_dequantize_rows_bf16_out_bitwise_vs_plain(cuda, shape, scale_dtype):
+    """The Pallas dequantize's dtype= argument: the fp32 product rounded
+    once to bf16, from fp32 or bf16 scales."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.quantize import ops
+    from repro_torch.kernels.quantize.ref import dequantize_ref
+    g = torch.Generator().manual_seed(shape[0] + shape[1])
+    x = (torch.randn(shape, generator=g) * 3.0).to(cuda)
+    q, s = ops.quantize_rows(x)
+    s = s.to(getattr(torch, scale_dtype))
+    reset_launches()
+    out = ops.dequantize_rows(q, s, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dequantize"] == 1 and out.dtype == torch.bfloat16
+    assert torch.equal(out, dequantize_ref(q, s, torch.bfloat16))
+
+
+_F32, _BF16 = "float32", "bfloat16"
+# name -> [(shape, dtype)] in tree order; "misaligned" lays every leaf 4
+# bytes past a 16-byte aligned base (the scalar path for all of them)
+QUANTIZE_TREES = {
+    "lenet": [((6,), _F32), ((5, 5, 1, 6), _F32), ((16,), _F32),
+              ((5, 5, 6, 16), _F32), ((120,), _F32), ((784, 120), _F32),
+              ((84,), _F32), ((120, 84), _F32), ((10,), _F32), ((84, 10), _F32)],
+    "odd": [((), _F32), ((4, 0), _F32), ((0, 5), _F32), ((6,), _F32)],
+    "ragged": [((5, 300), _F32), ((2, 3, 520), _F32), ((3, 257), _F32),
+               ((1001, 256), _F32)],
+    "bf16": [((120,), _BF16), ((784, 120), _BF16), ((4, 520), _BF16),
+             ((84, 10), _BF16)],
+    "mixed": [((120,), _BF16), ((4, 520), _BF16), ((7, 10), _F32),
+              ((32, 120), _F32), ((64, 1024), _F32)],
+    "many": [(((i % 5) + 1, 4 + 3 * i), _F32) for i in range(70)],
+    "misaligned": [((784, 120), _F32), ((120, 84), _F32), ((64, 256), _BF16)],
+}
+
+
+def _tree_leaves(name, device):
+    g = torch.Generator().manual_seed(len(name))
+    leaves = []
+    for shape, dtype in QUANTIZE_TREES[name]:
+        x = torch.randn(shape, generator=g) * 3.0
+        if x.numel() > 8:
+            x.view(-1)[:8] = torch.tensor([0.0, 1e-30, -1e-30, 127.0, 0.5, 1.5,
+                                           2.5, -2.5])        # ties, tiny, zero
+        x = x.to(device, getattr(torch, dtype))
+        if name == "misaligned":
+            off = 4 // x.element_size()
+            x = torch.empty(off + x.numel(), dtype=x.dtype,
+                            device=device)[off:].view(x.shape).copy_(x)
+        leaves.append(x)
+    return leaves
+
+
+@pytest.mark.parametrize("name", sorted(QUANTIZE_TREES))
+def test_tree_kernels_bitwise_vs_plain(cuda, name):
+    """quantize_tree / dequantize_tree / roundtrip_tree against the plain
+    version that walks the same segment table, on the card; one launch a
+    direction for every 64 leaves."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.quantize import ops, ref, table
+    leaves = _tree_leaves(name, cuda)
+    specs = [(tuple(x.shape), x.dtype) for x in leaves]
+    groups = len(table.plan_for(leaves, 256).groups)
+    reset_launches()
+    pairs = ops.quantize_tree(leaves)
+    want = ref.quantize_tree_ref(leaves, 256)
+    for (q, s), (qr, sr) in zip(pairs, want):
+        assert q.shape == qr.shape and s.dtype == sr.dtype == torch.bfloat16
+        assert torch.equal(q, qr) and torch.equal(s, sr)
+    for got in (ops.dequantize_tree(pairs, specs), ops.roundtrip_tree(leaves)):
+        for o, w, x in zip(got, ref.dequantize_tree_ref(pairs, specs), leaves):
+            assert o.shape == x.shape and o.dtype == x.dtype
+            assert torch.equal(o, w)
+    torch.cuda.synchronize()
+    assert LAUNCHES["quantize"] == 2 * groups and LAUNCHES["dequantize"] == 2 * groups
+
+
+def test_lenet_broadcast_launches_one_kernel_each_way(cuda):
+    """The main path's wire: one roundtrip_tree of LeNet's params adds one
+    launch to each counter."""
+    from repro_torch.configs.lenet_dfl import CONFIG
+    from repro_torch.core import compression
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lenet
+    params = lenet.init(torch.Generator(device=cuda).manual_seed(0), CONFIG, cuda)
+    compression.roundtrip_tree(params)          # plan cached, library loaded
+    torch.cuda.synchronize()
+    reset_launches()
+    back = compression.roundtrip_tree(params)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"quantize": 1, "dequantize": 1}
+    want = compression.roundtrip_tree(
+        {k: {kk: v.cpu() for kk, v in d.items()} for k, d in params.items()})
+    for k in params:
+        for kk in params[k]:
+            assert torch.equal(back[k][kk].cpu(), want[k][kk])
+
+
 @pytest.mark.parametrize("n,d,offset", [(10, 94080, 0), (10, 10080, 0),
                                         (10, 10081, 0), (3, 4100, 1)])
 def test_wfedavg_kernel_vs_plain(cuda, n, d, offset):
@@ -61,6 +161,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         q_ops.quantize_rows(torch.zeros((4, 300), device=cuda))
     with pytest.raises(TypeError):
         q_ops.quantize_rows(torch.zeros((4, 8), device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError):
+        q_ops.roundtrip_tree([torch.zeros(4, device=cuda), torch.zeros(4)])
+    with pytest.raises(TypeError):
+        q_ops.dequantize_rows(torch.zeros((4, 8), device=cuda, dtype=torch.int8),
+                              torch.ones((4, 1), device=cuda), dtype=torch.float16)
     with pytest.raises(TypeError):
         wf_ops.wfedavg_flat(torch.zeros((2, 8), device=cuda, dtype=torch.float64),
                             torch.ones(2, device=cuda), torch.zeros(8, device=cuda))
