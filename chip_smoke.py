@@ -60,7 +60,23 @@ prints its last line):
    agree, in fp32 and bf16; counts zeroed just before each card run and
    read just after, and the simt kernel must have launched once per layer
    (the fp32 run's count is its row's launches);
-9. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
+9. the vectorized engine (``simlax.LaxSimulator``): a small toy and a
+   small LeNet federation through the dense, sparse and compact engines on
+   the card must agree (integers and reputations exactly, floats within
+   rtol 1e-6); the compact engine on the card against the CPU from the
+   same params (toy and LeNet); two seeded card runs bitwise equal;
+10. the paper's §VI-D federation on the compact engine
+   (``lenet_paper_setup(10, compress="int8")``): honest accuracy >= 0.90
+   and poisoners' reputation below the honest nodes' by 0.1 (the JAX
+   acceptance test's thresholds); counts zeroed just before and read just
+   after, quantize and dequantize once a training tick (106);
+11. ``lenet_paper_setup(1024, compress="int8")`` at full LeNet width,
+   counted the same way: set-up seconds, ticks/s, peak device memory,
+   accuracy and reputations (printed), a profiled 24-tick window (device
+   busy / idle share, top device ops, host split by function); then both
+   wire kernels on its stacked (1024, ...) tree beside their bound and the
+   plain version;
+12. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line.
 
 It exits non-zero without a result when CUDA is unavailable or when the
@@ -480,17 +496,26 @@ def time_llama3_layer(torch):
     """The tree kernels where bandwidth bounds them: random fp32 tensors
     shaped like one llama3-8b decoder layer's weights as
     ``transformer.init`` lays them out (its stacked units without the layer
-    axis), each kernel held bitwise to the plain version first."""
+    axis)."""
     from repro_torch import tree
     from repro_torch.configs import get_config
-    from repro_torch.kernels.quantize import ops as q_ops
-    from repro_torch.kernels.quantize import ref as q_ref
-    from repro_torch.kernels.quantize import table
     from repro_torch.models import transformer
 
     meta = transformer.init(torch.Generator(), get_config("llama3-8b"), "meta")
     shapes = [tuple(x.shape[1:]) for x in tree.leaves(meta["units"])]
-    g = torch.Generator(device="cuda").manual_seed(8)
+    return time_tree(torch, "llama3-8b layer", shapes, seed=8)
+
+
+def time_tree(torch, label, shapes, seed):
+    """Both tree kernels on random fp32 leaves of ``shapes`` (scaled like
+    weights), each held bitwise to the plain version first, then timed
+    beside it and the bytes bound; returns the (quantize, dequantize)
+    rows."""
+    from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.quantize import ref as q_ref
+    from repro_torch.kernels.quantize import table
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
     leaves = [torch.randn(s, generator=g, device="cuda") * 0.02 for s in shapes]
     specs = [(tuple(x.shape), x.dtype) for x in leaves]
     plan = table.plan_for(leaves, 256)
@@ -498,11 +523,11 @@ def time_llama3_layer(torch):
     pairs = q_ops.quantize_tree(leaves)
     for (q, s), (qr, sr) in zip(pairs, q_ref.quantize_tree_ref(leaves, 256)):
         if not (torch.equal(q, qr) and torch.equal(s, sr)):
-            fail("quantize tree kernel != plain at the llama3-8b layer")
+            fail(f"quantize tree kernel != plain at the {label}")
     for o, w in zip(q_ops.dequantize_tree(pairs, specs),
                     q_ref.dequantize_tree_ref(pairs, specs)):
         if not torch.equal(o, w):
-            fail("dequantize tree kernel != plain at the llama3-8b layer")
+            fail(f"dequantize tree kernel != plain at the {label}")
     nbytes = _tree_bytes(plan, leaves)
     b_ms, b_by = bound_ms(nbytes, 6 * n)
     out = {}
@@ -516,7 +541,7 @@ def time_llama3_layer(torch):
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          share=b_ms / ms, bytes=nbytes, elements=n,
                          leaves=len(leaves), rows=plan.n_scales)
-        print(f"time {name} llama3-8b layer ({len(leaves)} leaves, {n} fp32 "
+        print(f"time {name} {label} ({len(leaves)} leaves, {n} fp32 "
               f"elements, {plan.n_scales} rows, {nbytes} B): kernel_ms={ms:.5f} "
               f"plain_ms={plain_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) -> "
               f"{b_ms / ms:.4f} of its bound, {nbytes / ms / 1e9:.4f} TB/s "
@@ -1079,6 +1104,298 @@ def check_smoke_card_vs_cpu(torch):
 
 
 # ------------------------------------------------------------------ main
+# ------------------------------------------------------------ phases 9-11
+LAX_INT_KEYS = ("arrive", "buf_cnt", "next_train", "min_sender")
+LAX_STATS = ("broadcasts", "deliveries", "fedavg_rounds", "max_tick_deliveries")
+
+
+def _lax_toy(engine, device, *, n=14, ticks=90, fixed=False, attack="gaussian",
+             seed=1):
+    """tests/test_torch_simlax.py's kregular case: degree 3, ttl 2, a dead
+    node, a straggler; random train intervals unless ``fixed``."""
+    from repro_torch.chain import attacks, scenarios, simlax
+    from repro_torch.core import topology
+    from repro_torch.core.reputation import IMPL2
+    spec = attacks.FederationSpec.build(
+        n, malicious=(2, 9), attack=attack, dead=(5,), stragglers={1: 4},
+        initial_countdown=[1 + (3 * i) % 4 for i in range(n)])
+    cfg = simlax.SimLaxConfig(ticks=ticks, train_interval=(4, 4 if fixed else 8),
+                              latency=1, ttl=2, record_every=18, seed=seed,
+                              delivery=engine, compress="int8")
+    sc = scenarios.toy_scenario(n, dim=8, malicious=(2, 9))
+    return simlax.LaxSimulator(sc, topology.make("kregular", n, degree=3), spec,
+                               IMPL2, cfg, device=device).run()
+
+
+def _lax_lenet_scenario(n=6, train_steps=0):
+    from repro_torch.chain import scenarios
+    return scenarios.lenet_scenario(n, malicious=(0,), train_steps=train_steps,
+                                    pool=32, eval_size=16, test_size=64, batch=8)
+
+
+def _lax_lenet(engine, device, *, n=6, ticks=24, train_steps=0, attack="signflip",
+               fixed=True, params0=None, seed=0):
+    """A small LeNet federation: full width, small data, int8 wire."""
+    from repro_torch.chain import attacks, simlax
+    from repro_torch.core import topology
+    from repro_torch.core.reputation import IMPL2
+    sc = _lax_lenet_scenario(n, train_steps)
+    spec = attacks.FederationSpec.build(
+        n, malicious=(0,), attack=attack,
+        initial_countdown=[1 + i % 3 for i in range(n)])
+    cfg = simlax.SimLaxConfig(ticks=ticks, train_interval=(3, 3 if fixed else 5),
+                              latency=1, ttl=2, record_every=4, seed=seed,
+                              delivery=engine, compress="int8")
+    sim = simlax.LaxSimulator(sc, topology.kregular(n, 2), spec, IMPL2, cfg,
+                              device=device)
+    return sim.run(params0)
+
+
+def _lax_same(a, b, what, *, floats):
+    """Two vectorized-engine results: stats, per-node broadcasts, the integer
+    final state and reputations exactly; floats by ``floats`` ("bitwise",
+    "rtol" = 1e-6, or "int8" = the int8 boundary-flip rule on params, test
+    accuracies within 2 of 64). Returns the largest float difference."""
+    import numpy as np
+    for k in LAX_STATS:
+        if a.stats[k] != b.stats[k]:
+            fail(f"{what}: stats[{k}] {a.stats[k]} != {b.stats[k]}")
+    if not np.array_equal(a.stats["broadcasts_per_node"],
+                          b.stats["broadcasts_per_node"]):
+        fail(f"{what}: broadcasts per node differ")
+    for k in LAX_INT_KEYS:
+        if not np.array_equal(a.final_state[k], b.final_state[k]):
+            fail(f"{what}: final {k} differs")
+    if not np.array_equal(a.reputation, b.reputation):
+        fail(f"{what}: reputations differ")
+    pairs = [(a.final_state[k], b.final_state[k]) for k in ("w_sum", "min_acc")]
+    pairs += list(zip(_leaves(a.params), _leaves(b.params)))
+    worst = 0.0
+    for x, y in pairs:
+        with np.errstate(invalid="ignore"):
+            diff = np.abs(x.astype(np.float64) - y.astype(np.float64))
+        diff = np.where(x == y, 0.0, diff)
+        worst = max(worst, float(diff.max()) if diff.size else 0.0)
+        if floats == "bitwise" and not np.array_equal(x, y):
+            fail(f"{what}: floats differ (max {float(diff.max())})")
+        if floats == "rtol" and not np.allclose(x, y, rtol=1e-6, atol=0):
+            fail(f"{what}: floats differ beyond rtol 1e-6")
+        if floats == "int8":
+            off = diff > 1e-5
+            if off.any() and (off.mean() > 1e-4
+                              or diff.max() > np.abs(y).max() / 127.0):
+                fail(f"{what}: params differ beyond the int8 boundary rule")
+    acc = np.abs(a.acc_history - b.acc_history)
+    if floats == "int8" and acc.size and acc.max() > 2 / 64:
+        fail(f"{what}: test accuracies differ by {acc.max()}")
+    if floats != "int8" and not np.allclose(a.acc_history, b.acc_history,
+                                            rtol=0 if floats == "bitwise" else 1e-6,
+                                            atol=0):
+        fail(f"{what}: test accuracies differ")
+    return worst
+
+
+def check_lax_engines(torch):
+    """Phase 9: the vectorized engine's delivery engines agree on the card,
+    the card agrees with the CPU, and two seeded card runs are bitwise
+    equal."""
+    from repro_torch import convert
+    toy = {e: _lax_toy(e, "cuda") for e in ("compact", "sparse", "dense")}
+    lenet = {e: _lax_lenet(e, "cuda", train_steps=1, attack="gaussian",
+                           fixed=False)
+             for e in ("compact", "sparse", "dense")}
+    for name, runs in (("toy", toy), ("lenet", lenet)):
+        if runs["compact"].stats["deliveries"] <= 0:
+            fail(f"{name}: no deliveries")
+        gap = max(_lax_same(runs["compact"], runs[e], f"{name} compact vs {e}",
+                            floats="rtol") for e in ("sparse", "dense"))
+        print(f"lax engines on the card, {name}: compact == sparse == dense "
+              f"(stats {json.dumps({k: runs['compact'].stats[k] for k in LAX_STATS})}; "
+              f"max float gap {gap:.3e})")
+    params0 = convert.params_to_numpy(
+        _lax_lenet_scenario().init_params_stacked("cuda"))
+    card = _lax_lenet("compact", "cuda", params0=params0)
+    host = _lax_lenet("compact", "cpu", params0=params0)
+    gap = _lax_same(card, host, "lenet compact cuda vs cpu", floats="int8")
+    print(f"lax compact, lenet cuda vs cpu from the same params: events and "
+          f"reputations equal, max float gap {gap:.3e}")
+    gap = _lax_same(_lax_toy("compact", "cuda", fixed=True, attack="signflip"),
+                    _lax_toy("compact", "cpu", fixed=True, attack="signflip"),
+                    "toy compact cuda vs cpu", floats="rtol")
+    print(f"lax compact, toy cuda vs cpu: events and reputations equal, max "
+          f"float gap {gap:.3e}")
+    for name, run in (("toy", lambda: _lax_toy("compact", "cuda")),
+                      ("lenet", lambda: _lax_lenet(
+                          "compact", "cuda", train_steps=2, attack="gaussian",
+                          fixed=False, seed=3))):
+        a, b = run(), run()
+        _lax_same(a, b, f"{name} compact twice", floats="bitwise")
+        for x, y in zip(_leaves(a.sent), _leaves(b.sent)):
+            if not (x == y).all():
+                fail(f"{name} compact twice: broadcasts differ")
+        print(f"lax compact, {name}: two seeded card runs bitwise equal")
+
+
+def _training_ticks(spec, cfg):
+    """Ticks on which some node trains, from the role sheet alone (fixed
+    interval, no churn): the wire's launches on the lax path, one
+    round trip a training tick."""
+    lo, hi = cfg.train_interval
+    if lo != hi or spec.membership is not None or spec.dead:
+        fail("the launch count needs a fixed interval and static membership")
+    strag = dict(spec.stragglers)
+    nxt = list(spec.initial_countdown)
+    ticks = 0
+    for _ in range(cfg.ticks):
+        nxt = [c - 1 for c in nxt]
+        trained = [i for i, c in enumerate(nxt) if c <= 0]
+        for i in trained:
+            nxt[i] = lo * strag.get(i, 1)
+        ticks += bool(trained)
+    return ticks
+
+
+def run_lax_paper(torch, n, *, profile_ticks=0):
+    """Phases 10-11: ``lenet_paper_setup(n, compress="int8")`` on the compact
+    engine, counted; quantize and dequantize must launch once a training
+    tick. With ``profile_ticks``, fresh runs of the first ticks under the
+    profilers."""
+    import numpy as np
+
+    from repro_torch.chain import scenarios, simlax
+    from repro_torch.core.reputation import IMPL2
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    sc, spec, topo, cfg = scenarios.lenet_paper_setup(n, compress="int8")
+    t1 = time.perf_counter()
+    sim = simlax.LaxSimulator(sc, topo, spec, IMPL2, cfg, device="cuda")
+    params0 = sc.init_params_stacked("cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t3 = time.perf_counter()
+    res = sim.run(params0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t3
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = _training_ticks(spec, cfg)
+    mal = list(spec.malicious)
+    honest = [i for i in range(n) if i not in mal]
+    acc = res.acc_history[:, honest].mean(1)
+    rep_mal = float(np.mean([res.mean_reputation(i) for i in mal]))
+    rep_hon = float(np.mean([res.mean_reputation(i) for i in honest]))
+    st = res.stats
+    print(f"lax paper run n={n}: lenet_paper_setup(n={n}, compress='int8') "
+          f"compact engine, ticks={cfg.ticks}, device=cuda; W bound "
+          f"{st['compact_budget']}, slot width {st['delivery_budget']}")
+    print(f"lax n={n} set-up seconds: scenario data {t1 - t0:.3f}, simulator "
+          f"+ params on the card {t2 - t1:.3f}")
+    print(f"lax n={n} run: wall {wall:.3f} s, {cfg.ticks / wall:.3f} ticks/s, "
+          f"peak device memory {peak:.3f} GiB")
+    print(f"lax n={n} stats: " + json.dumps(
+        {k: st[k] for k in LAX_STATS + ("wire_bytes",)}))
+    print(f"lax n={n} honest mean test accuracy by record tick "
+          f"{res.record_ticks.tolist()}: {[round(float(a), 4) for a in acc]}")
+    # a node's reputation moves only in the views of the nodes that hear
+    # it: its ttl-ball (at n = 1024 most of a ring never does)
+    from repro_torch.core import topology
+    dist = topology.hop_distance_from_adj(topo.adj, max_hops=cfg.ttl)
+    ball = (dist >= 1) & (dist <= cfg.ttl)
+    ball_mal, ball_hon = (float(np.mean([res.reputation[ball[:, j], j].mean()
+                                         for j in ids])) for ids in (mal, honest))
+    print(f"lax n={n} mean reputation: poisoners {rep_mal:.4f}, honest "
+          f"{rep_hon:.4f}; in the views of their ttl-balls: poisoners "
+          f"{ball_mal:.4f}, honest {ball_hon:.4f}")
+    print(f"lax n={n} launches: {json.dumps(launches, sort_keys=True)} "
+          f"(training ticks {want})")
+    for k in ("quantize", "dequantize"):
+        if launches.get(k, 0) != want:
+            fail(f"lax n={n}: {k} launched {launches.get(k, 0)} times, not "
+                 f"once for each of the {want} training ticks")
+    for leaf in _leaves(res.params):
+        if not np.isfinite(leaf).all():
+            fail(f"lax n={n}: params are not finite")
+    out = dict(n=n, wall_s=wall, ticks=cfg.ticks, ticks_per_s=cfg.ticks / wall,
+               peak_gib=peak, launches=launches, training_ticks=want,
+               honest_acc=float(acc[-1]), rep_mal=rep_mal, rep_hon=rep_hon,
+               ball_rep_mal=ball_mal, ball_rep_hon=ball_hon, setup_s=t2 - t0)
+    if profile_ticks:
+        profile_lax(torch, sc, spec, topo, cfg, profile_ticks)
+    return out
+
+
+def profile_lax(torch, sc, spec, topo, cfg, ticks):
+    """Where the vectorized engine's time goes, on fresh runs of its first
+    ``ticks`` ticks: device busy / idle share and top device ops from the
+    profiler, the host's split by function from cProfile."""
+    import cProfile
+    import dataclasses
+    import pstats
+
+    from repro_torch.chain import simlax
+    from repro_torch.core.reputation import IMPL2
+
+    short = dataclasses.replace(cfg, ticks=ticks)
+
+    def fresh():
+        sim = simlax.LaxSimulator(sc, topo, spec, IMPL2, short, device="cuda")
+        return sim, sc.init_params_stacked("cuda")
+
+    sim, p0 = fresh()
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        sim.run(p0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in measured_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+    busy = sum(by_name.values())
+    print(f"lax profile window n={sc.num_nodes} ({ticks} ticks, profiler on): "
+          f"wall {wall:.3f} s, device busy {busy:.4f} s, device idle share "
+          f"{1 - busy / wall:.4f}")
+    for name, sec in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  device {sec:.4f} s ({sec / busy:.3f} of busy)  {name[:90]}")
+    sim, p0 = fresh()
+    torch.cuda.synchronize()
+    pr = cProfile.Profile()
+    t0 = time.perf_counter()
+    pr.enable()
+    sim.run(p0)
+    torch.cuda.synchronize()
+    pr.disable()
+    wall = time.perf_counter() - t0
+    cum = {}
+    for (path, _, func), (_, _, _, ct, _) in pstats.Stats(pr).stats.items():
+        key = f"{os.path.basename(path)}:{func}"
+        cum[key] = cum.get(key, 0.0) + ct
+    print(f"lax host window ({ticks} ticks, cProfile on): wall {wall:.3f} s; "
+          "cumulative share of wall (nested entries overlap):")
+    for key in ("simlax.py:_run", "simlax.py:_reduce", "simlax.py:_eval",
+                "scenarios.py:eval_stacked", "simlax.py:_train_and_send",
+                "scenarios.py:train_stacked", "scenarios.py:sgd_stacked",
+                "attacks.py:apply", "attacks.py:attack_key_at",
+                "compression.py:roundtrip_tree", "simlax.py:_items_compact",
+                "scenarios.py:test_stacked", "{method 'cpu' of 'torch._C.TensorBase' objects}",
+                "{method 'item' of 'torch._C.TensorBase' objects}"):
+        if key in cum:
+            print(f"  {key:48s} {cum[key]:8.3f} s  {cum[key] / wall:.3f}")
+
+
+def time_lax_wire(torch, n):
+    """K1 / K2 where the vectorized engine puts them: the stacked (n, ...)
+    LeNet tree, one launch a direction."""
+    from repro_torch.configs.lenet_dfl import CONFIG
+    from repro_torch.models import lenet
+    meta = lenet.init(torch.Generator(device="cpu"), CONFIG, "meta")
+    shapes = [(n,) + tuple(x.shape) for x in _leaves(meta)]
+    return time_tree(torch, f"stacked LeNet tree n={n}", shapes, seed=9)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1155,7 +1472,30 @@ def main() -> int:
     # size, the simt flash kernel's path (fp32, Dh 16), counted
     launches["flash_attention"] = check_smoke_card_vs_cpu(torch)
 
-    # phase 9: report
+    # phase 9: the vectorized engine's delivery engines on the card, the
+    # card against the CPU, two seeded runs bitwise
+    check_lax_engines(torch)
+
+    # phase 10: the paper's §VI-D federation on the vectorized engine,
+    # counted, held to the JAX acceptance test's thresholds
+    lax10 = run_lax_paper(torch, 10)
+    if lax10["honest_acc"] < 0.90:
+        fail(f"lax n=10: honest accuracy {lax10['honest_acc']:.4f} < 0.90")
+    if not lax10["rep_mal"] < lax10["rep_hon"] - 0.1:
+        fail(f"lax n=10: poisoners' reputation {lax10['rep_mal']:.4f} is not "
+             f"below the honest {lax10['rep_hon']:.4f} by 0.1")
+
+    # phase 11: 1024 nodes, counted and profiled; the wire kernels at its
+    # stacked tree
+    lax1024 = run_lax_paper(torch, 1024, profile_ticks=24)
+    for kname, row in zip(("quantize", "dequantize"), time_lax_wire(torch, 1024)):
+        times[kname]["lax"] = dict(
+            stacked_n1024=row, launches_n10=lax10["launches"][kname],
+            launches_n1024=lax1024["launches"][kname])
+    print("lax runs: " + json.dumps({"n10": lax10, "n1024": lax1024},
+                                    sort_keys=True))
+
+    # phase 12: report
     kernels = []
     for kname, src, replaces, err in (
             ("quantize", "src/repro_torch/csrc/quantize.cu",
@@ -1179,7 +1519,8 @@ def main() -> int:
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                         "call_ms": t["call_ms"], "shape": t["shape"],
                         "timing": t["timing"],
-                        **{k: t[k] for k in ("per_leaf_ms", "llama3_layer") if k in t}})
+                        **{k: t[k] for k in ("per_leaf_ms", "llama3_layer", "lax")
+                           if k in t}})
     f2 = times["wfedavg@f2"]
     print("wfedavg at f2.w: " + json.dumps(f2, sort_keys=True))
     print("flash at gemma3 local heads: " + json.dumps(

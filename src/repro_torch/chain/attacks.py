@@ -32,8 +32,10 @@ Randomness: JAX's ``fold_in(tick)`` key stream has no PyTorch counterpart,
 so ``attack_key_at`` seeds one ``torch.Generator`` per (seed, tick, fold,
 node) from a hash of the four. The draws differ from the JAX package's;
 the structure (which node draws from which stream on which tick, and the
-fold constants of ``attack_fold``) is the same. ``BatchedFederationSpec``
-belongs to the vectorized engine and is ported with it.
+fold constants of ``attack_fold``) is the same. ``stream_key_at`` seeds
+the vectorized engine's other per-tick streams the same way.
+``BatchedFederationSpec`` is the batched engine's role sheet; the port
+runs one federation at a time so far.
 """
 from __future__ import annotations
 
@@ -166,15 +168,32 @@ def attack_fold(group_index: int) -> int:
     return 1 if group_index == 0 else group_index + 2
 
 
+def _seeded(text: str, device) -> torch.Generator:
+    digest = hashlib.sha256(text.encode()).digest()
+    g = torch.Generator(device=device)
+    g.manual_seed(int.from_bytes(digest[:8], "big") & (2 ** 63 - 1))
+    return g
+
+
 def attack_key_at(seed: int, tick: int, fold: int, node: int,
                   device="cpu") -> torch.Generator:
     """Node ``node``'s attack generator at ``tick``: a fresh
     ``torch.Generator`` on ``device`` seeded from (seed, tick, fold, node)."""
-    digest = hashlib.sha256(
-        f"attack:{int(seed)}:{int(tick)}:{int(fold)}:{int(node)}".encode()).digest()
-    g = torch.Generator(device=device)
-    g.manual_seed(int.from_bytes(digest[:8], "big") & (2 ** 63 - 1))
-    return g
+    return _seeded(f"attack:{int(seed)}:{int(tick)}:{int(fold)}:{int(node)}",
+                   device)
+
+
+def stream_key_at(seed: int, tick: Optional[int], fold: int,
+                  device="cpu") -> torch.Generator:
+    """The vectorized engine's per-tick stream ``fold`` at ``tick``: a fresh
+    ``torch.Generator`` on ``device`` seeded from (seed, tick, fold), the
+    counterpart of the JAX engine's ``fold_in(fold_in(PRNGKey(seed), t),
+    fold)``. Folds: 0 keys the tick's train draws, 2 the train-interval
+    redraw; ``tick=None`` is the base key, whose fold 12345 draws the
+    initial countdowns. Attack draws use ``attack_key_at`` instead, one
+    generator an attacker, as the heap engine does."""
+    where = "base" if tick is None else int(tick)
+    return _seeded(f"stream:{int(seed)}:{where}:{int(fold)}", device)
 
 
 # ================================================================= role sheet
@@ -437,3 +456,38 @@ class FederationSpec:
                     return attack_key_at(seed, tick, _fold, _i, device)
                 fns[node] = key_at
         return fns
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedFederationSpec:
+    """A stack of same-N ``FederationSpec`` role sheets, one seed each: the
+    unit the batched vectorized engine runs together (the JAX package's
+    ``BatchedFederationSpec``). The port's ``LaxSimulator`` does not run
+    batches yet and raises on one.
+
+    specs: (B,) FederationSpec members
+    seeds: (B,) per-member engine seeds, or None for the config's seed
+    """
+    specs: Tuple[FederationSpec, ...]
+    seeds: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if not self.specs:
+            raise ValueError("BatchedFederationSpec needs >= 1 spec")
+        n = self.specs[0].num_nodes
+        for b, s in enumerate(self.specs):
+            if s.num_nodes != n:
+                raise ValueError(
+                    f"batch members must share num_nodes: member {b} has "
+                    f"{s.num_nodes}, member 0 has {n}")
+        if self.seeds is not None and len(self.seeds) != len(self.specs):
+            raise ValueError(
+                f"{len(self.seeds)} seeds for {len(self.specs)} specs")
+
+    @classmethod
+    def build(cls, specs: Sequence[FederationSpec],
+              seeds: Optional[Sequence[int]] = None
+              ) -> "BatchedFederationSpec":
+        return cls(specs=tuple(specs),
+                   seeds=None if seeds is None
+                   else tuple(int(s) for s in seeds))

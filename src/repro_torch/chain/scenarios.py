@@ -12,9 +12,19 @@ the same seed) and satisfies one uniform signature set:
     eval_fn(params, eval_data_i)        -> accuracy      (receipt measurement)
     test_fn(params)                     -> accuracy      (global test metric)
 
+and their stacked counterparts, which the vectorized engine
+(``repro_torch.chain.simlax``) calls on M models at once:
+
+    train_stacked(params, generator, data, rows) -> params (M, ...): the
+        training actions of nodes ``rows`` from the (N, ...) params/data
+    eval_stacked(models, eval_data)     -> (M,) accuracies, model m on
+                                           eval data row m
+    test_stacked(params)                -> (N,) test accuracies
+
 train/eval/test run on the device their params live on. ``train_fn`` draws
 its batch indices from the ``torch.Generator`` it is handed (the node's
-own). Initial params come from a generator seeded with the scenario's seed,
+own); ``train_stacked`` draws all N nodes' indices from the one generator
+and keeps the rows', so a node's draw does not depend on who else trains. Initial params come from a generator seeded with the scenario's seed,
 so they differ from the JAX package's draws; tests carry the JAX params
 across with ``repro_torch.convert``.
 
@@ -44,6 +54,7 @@ from repro_torch.data.synthetic import SyntheticMnist
 from repro_torch.models import lenet
 
 LR = 0.1
+_LR32 = float(np.float32(LR))
 
 
 @runtime_checkable
@@ -64,6 +75,12 @@ class Scenario(Protocol):
     def eval_fn(self, params, eval_data_i): ...
 
     def test_fn(self, params): ...
+
+    def train_stacked(self, params, generator, data, rows): ...
+
+    def eval_stacked(self, models, eval_data): ...
+
+    def test_stacked(self, params): ...
 
 
 class _DeviceCache:
@@ -221,8 +238,14 @@ class ToyScenario:
 
     def train_fn(self, params, generator, data=None):
         del generator, data
-        w = params["w"]
-        return {"w": w + LR * (self._cache.get("target", self.target, w.device) - w)}
+        return {"w": self._step(params["w"])}
+
+    def _step(self, w):
+        """``w + LR * (target - w)`` as one fused multiply-add, rounded once
+        (through float64: the float32 product is exact there), as the JAX
+        package's compiled step computes it."""
+        d = self._cache.get("target", self.target, w.device) - w
+        return (w.double() + _LR32 * d.double()).to(w.dtype)
 
     def eval_fn(self, params, ref):
         return torch.clamp(1.0 - torch.mean(torch.abs(params["w"] - ref)), 0.0, 1.0)
@@ -230,6 +253,19 @@ class ToyScenario:
     def test_fn(self, params):
         return self.eval_fn(
             params, self._cache.get("target", self.target, params["w"].device))
+
+    def train_stacked(self, params, generator, data, rows):
+        del generator, data
+        return {"w": self._step(params["w"][rows])}
+
+    def eval_stacked(self, models, refs):
+        return torch.clamp(
+            1.0 - torch.mean(torch.abs(models["w"] - refs), dim=-1), 0.0, 1.0)
+
+    def test_stacked(self, params):
+        w = params["w"]
+        return self.eval_stacked(
+            params, self._cache.get("target", self.target, w.device).expand_as(w))
 
 
 def toy_scenario(n: int, dim: int = 16, malicious: Sequence[int] = (),
@@ -295,14 +331,44 @@ class LeNetScenario:
         pool = data["labels"].shape[0]
         idx = torch.randint(0, pool, (self.train_steps, self.batch),
                             generator=generator, device=generator.device)
-        idx = idx.to(data["labels"].device)
+        return self.sgd(params, data, idx.to(data["labels"].device))
+
+    def sgd(self, params, data, idx):
+        """One node's SGD steps, step s on its pool rows ``idx[s]``."""
         p = params
-        for s in range(self.train_steps):
-            ix = idx[s]
+        for ix in idx:
             batch = {"images": data["images"][ix], "labels": data["labels"][ix]}
             leaves = [x.detach().requires_grad_(True) for x in tree.leaves(p)]
             loss, _ = lenet.loss_and_acc(tree.unflatten(p, leaves), batch)
             grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                p = tree.unflatten(
+                    p, [a - self.lr * g for a, g in zip(leaves, grads)])
+        return p
+
+    def train_stacked(self, params, generator, data, rows):
+        """The training actions of nodes ``rows`` at once: the (N,
+        train_steps, batch) pool indices come from ``generator`` and each
+        row keeps its own."""
+        models = tree.map(lambda x: x[rows], params)
+        if self.train_steps == 0:
+            return models
+        n, pool = data["labels"].shape
+        idx = torch.randint(0, pool, (n, self.train_steps, self.batch),
+                            generator=generator, device=generator.device)
+        return self.sgd_stacked(models, data, rows,
+                                idx.to(data["labels"].device)[rows])
+
+    def sgd_stacked(self, models, data, rows, idx):
+        """M models' SGD steps at once: model m trains on pool ``rows[m]``,
+        step s on its rows ``idx[m, s]``."""
+        p = models
+        for s in range(idx.shape[1]):
+            pick = (rows[:, None], idx[:, s])
+            batch = {"images": data["images"][pick], "labels": data["labels"][pick]}
+            leaves = [x.detach().requires_grad_(True) for x in tree.leaves(p)]
+            losses = lenet.losses_stacked(tree.unflatten(p, leaves), batch)
+            grads = torch.autograd.grad(losses.sum(), leaves)
             with torch.no_grad():
                 p = tree.unflatten(
                     p, [a - self.lr * g for a, g in zip(leaves, grads)])
@@ -318,6 +384,35 @@ class LeNetScenario:
             return lenet.accuracy(
                 params, self._cache.get("test_images", self.test_images, dev),
                 self._cache.get("test_labels", self.test_labels, dev))
+
+    def eval_stacked(self, models, ed):
+        return _accuracy_chunked(models, ed["images"], ed["labels"])
+
+    def test_stacked(self, params):
+        dev = device_lib.of(params)
+        n = tree.leaves(params)[0].shape[0]
+        images = self._cache.get("test_images", self.test_images, dev)
+        labels = self._cache.get("test_labels", self.test_labels, dev)
+        return _accuracy_chunked(params, images.expand(n, *images.shape),
+                                 labels.expand(n, *labels.shape))
+
+
+# model-image pairs a stacked forward takes at once: bounds the activations
+# of an evaluation over many models (2**17 pairs: ~2.5 GB for conv1's)
+EVAL_PAIRS = 1 << 17
+
+
+def _accuracy_chunked(models, images, labels):
+    """(M,) accuracies, model m on images[m] / labels[m], EVAL_PAIRS
+    model-image pairs a forward."""
+    m, b = labels.shape
+    step = max(1, EVAL_PAIRS // b)
+    with torch.no_grad():
+        return torch.cat([
+            lenet.accuracy_stacked(
+                tree.map(lambda x, i=i: x[i:i + step], models),
+                images[i:i + step], labels[i:i + step])
+            for i in range(0, m, step)])
 
 
 def lenet_scenario(n: int, *, alpha: float = 1.0,

@@ -8,6 +8,13 @@ dense weights (in, out). Inside, activations and conv weights are permuted
 to PyTorch's NCHW / OIHW for ``F.conv2d`` (5x5 SAME = padding 2) and
 ``F.max_pool2d``. The pooled (B, 16, 7, 7) map is permuted back to NHWC
 before it is flattened, so ``f1.w`` rows keep the JAX (h, w, c) order.
+
+The ``*_stacked`` functions run M models at once, each on its own batch:
+params leaves gain a leading model axis (M, ...) and images are
+(M, B, H, W, C). The convolutions are one grouped ``F.conv2d`` (the M
+models' channels side by side, ``groups=M``), the dense layers ``bmm``.
+No model's output depends on another's params, so the gradient of the
+sum of per-model losses is each model's own gradient.
 """
 from __future__ import annotations
 
@@ -76,3 +83,52 @@ def loss_and_acc(params, batch):
 
 def accuracy(params, images, labels):
     return _accuracy(forward(params, images), labels.long())
+
+
+def _conv_stacked(p, x):
+    """x (B, M * Cin, H, W); p["w"] (M, 5, 5, Cin, Cout) HWIO ->
+    (B, M * Cout, H, W), 5x5 SAME, one group a model."""
+    m, kh, kw, cin, cout = p["w"].shape
+    w = p["w"].permute(0, 4, 3, 1, 2).reshape(m * cout, cin, kh, kw)
+    return F.conv2d(x, w, p["b"].reshape(m * cout), padding=2, groups=m)
+
+
+def _dense_stacked(p, h):
+    """h (M, B, in) @ w (M, in, out) + b (M, out)."""
+    return torch.bmm(h, p["w"]) + p["b"][:, None, :]
+
+
+def forward_stacked(params, x):
+    """x (M, B, H, W, C) -> logits (M, B, classes), model m's params on
+    its own batch x[m]."""
+    m, b, hh, ww, c = x.shape
+    h = x.permute(1, 0, 4, 2, 3).reshape(b, m * c, hh, ww)
+    h = F.max_pool2d(torch.tanh(_conv_stacked(params["c1"], h)), 2)
+    h = F.max_pool2d(torch.tanh(_conv_stacked(params["c2"], h)), 2)
+    c2 = params["c2"]["w"].shape[-1]
+    h = h.reshape(b, m, c2, h.shape[-2], h.shape[-1])
+    h = h.permute(1, 0, 3, 4, 2).reshape(m, b, -1)      # JAX (h, w, c) order
+    h = torch.tanh(_dense_stacked(params["f1"], h))
+    h = torch.tanh(_dense_stacked(params["f2"], h))
+    return _dense_stacked(params["out"], h)
+
+
+def _accuracy_stacked(logits, labels):
+    """(M,) fractions correct, each ``count / n`` with an IEEE divide."""
+    correct = (torch.argmax(logits, -1) == labels).sum(-1).to(torch.float32)
+    return correct / correct.new_tensor(labels.shape[-1])
+
+
+def losses_stacked(params, batch):
+    """batch images (M, B, H, W, C), labels (M, B) -> (M,) mean
+    cross-entropies, model m's on its own batch."""
+    logits = forward_stacked(params, batch["images"])
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(logz - gold, dim=-1)
+
+
+def accuracy_stacked(params, images, labels):
+    """(M,) accuracies of M models, model m on images[m] / labels[m]."""
+    return _accuracy_stacked(forward_stacked(params, images), labels.long())

@@ -176,6 +176,6 @@ def test_data_and_topology_copies_are_bit_identical():
     np.testing.assert_array_equal(p_topology.make("full", 5).adj,
                                   j_topology.make("full", 5).adj)
     with pytest.raises(ValueError):
-        p_topology.make("erdos", 8)
+        p_topology.make("star", 8)
     with pytest.raises(ValueError):
         p_topology.Topology("bad", np.eye(3, dtype=bool))

@@ -267,3 +267,35 @@ def test_flash_attention_sm90_takes_fused_projection_views(cuda, Dh):
     ops.flash_attention(flat, flat[:, :, :2], flat[:, :, 2:4])
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == 1 and LAUNCHES["flash_attention_sm90"] == 0
+
+
+def test_lax_compact_wire_is_one_kernel_pair_a_training_tick(cuda):
+    """The vectorized engine's int8 wire: one quantize and one dequantize
+    launch for each tick on which some node trains, whatever the number of
+    trainers (the stacked tree goes through in one round trip)."""
+    from repro_torch.chain import attacks, scenarios, simlax
+    from repro_torch.core import topology
+    from repro_torch.core.reputation import IMPL2
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    n, interval = 12, 4
+    countdown = [1 + (3 * i) % 5 for i in range(n)]
+    spec = attacks.FederationSpec.build(n, malicious=(0,), attack="signflip",
+                                        initial_countdown=countdown)
+    cfg = simlax.SimLaxConfig(ticks=30, train_interval=(interval, interval),
+                              latency=1, ttl=2, record_every=10,
+                              compress="int8")
+    sim = simlax.LaxSimulator(scenarios.toy_scenario(n, malicious=(0,)),
+                              topology.kregular(n, 2), spec, IMPL2, cfg,
+                              device="cuda")
+    reset_launches()
+    res = sim.run()
+    torch.cuda.synchronize()
+    nxt, training_ticks = list(countdown), 0
+    for _ in range(cfg.ticks):
+        nxt = [c - 1 for c in nxt]
+        trained = [i for i, c in enumerate(nxt) if c <= 0]
+        for i in trained:
+            nxt[i] = interval
+        training_ticks += bool(trained)
+    assert res.stats["broadcasts"] > training_ticks > 0
+    assert LAUNCHES["quantize"] == LAUNCHES["dequantize"] == training_ticks
