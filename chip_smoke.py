@@ -42,10 +42,12 @@ prints its last line):
    must have launched, and quantize and dequantize once a broadcast
    (``tx_sent``);
 5. a small federation run on the card (kernels) and on the CPU (plain
-   versions) from the same params must agree; one ``roundtrip_tree`` of
-   the LeNet params must run exactly two device kernels; then a 36-tick
-   window of the main path is profiled (device busy/idle share, host
-   split by function);
+   versions) from the same params must agree; two seeded heap runs of the
+   main path's recipe (training on, shortened to 36 ticks) must be bitwise
+   equal (every param leaf, the reputations, the accuracy histories); one
+   ``roundtrip_tree`` of the LeNet params must run exactly two device
+   kernels; then a 36-tick window of the main path is profiled (device
+   busy/idle share, host split by function);
 6. the serving path: ``python -m repro_torch.serve`` with llama3-8b at full
    width and depth (8.03 B random fp32 params and their bf16 copy), B 4
    prompts x P 4096 tokens, then 32 greedy decode steps; counts zeroed just
@@ -76,7 +78,24 @@ prints its last line):
    busy / idle share, top device ops, host split by function); then both
    wire kernels on its stacked (1024, ...) tree beside their bound and the
    plain version;
-12. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
+12. batched runs (``BatchedFederationSpec``): (a) eight heterogeneous toy
+   federations (n 16, 48 ticks, per-member seeds) batched on the card with
+   each of the compact, sparse and dense engines, every member bitwise its
+   single card run, and the compact batch against the same batch on the
+   CPU (fixed intervals, deterministic attacks); (b) the §VI-D sweep at
+   full LeNet width: ``lenet_paper_setup(10, compress="int8")``'s scenario,
+   topology and config under six role sheets (the recipe's poisoners under
+   each of the five attacks, and all honest) x seeds 0-3, 24 federations
+   in one run, counted: the (gaussian, seed 0) member bitwise phase 10's
+   run and held to its thresholds, three more members bitwise their single
+   runs, quantize and dequantize once a training tick for the whole batch;
+   wall, federations/s against the single runs', a profiled 24-tick
+   window, peak memory, every member's accuracy and reputations; before
+   it, the stacked SGD's CUDA-graph route against its eager route (bits
+   and time a call at 1, 2 and 8 models); both wire kernels at the batch's
+   stacked tree; (c) one ``sweeps.run_sweep`` of a small toy grid on the
+   card and its frontier tables;
+13. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line.
 
 It exits non-zero without a result when CUDA is unavailable or when the
@@ -835,6 +854,45 @@ def check_small_federation(torch):
           f"max |param diff| {worst:.3e}, boundary-flip fraction {flips:.2e} OK")
 
 
+def check_heap_twice(torch, ticks: int = 36):
+    """Two seeded heap runs of the main path's recipe (training on, the int8
+    wire, the kernels), cut to its first ``ticks`` ticks: every node's param
+    leaves, reputations and accuracy history bitwise equal. Node addresses
+    come from fresh RSA keys, so reputations are compared by node name."""
+    from repro_torch.chain import scenarios
+    from repro_torch.core.reputation import IMPL2
+
+    def run():
+        sc, spec, topo, cfg = scenarios.lenet_paper_setup(
+            n=10, ticks=ticks, compress="int8")
+        sim = scenarios.make_heap_simulator(sc, topo, spec, IMPL2, cfg,
+                                            use_kernel=True, device="cuda")
+        sim.run()
+        torch.cuda.synchronize()
+        names = {nd.info.address: nd.name for nd in sim.nodes.values()}
+        return sim, names
+
+    (a, names_a), (b, names_b) = run(), run()
+    if a.stats != b.stats:
+        fail(f"heap twice: stats differ {a.stats} vs {b.stats}")
+    if a.stats["fedavg_rounds"] <= 0:
+        fail("heap twice: no FedAvg round")
+    for na, nb in zip(a.nodes.values(), b.nodes.values()):
+        for x, y in zip(_leaves(na.params), _leaves(nb.params)):
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                fail(f"heap twice: {na.name} params differ (max "
+                     f"{float((x - y).abs().max())})")
+        if na.accuracy_history != nb.accuracy_history:
+            fail(f"heap twice: {na.name} accuracy histories differ")
+        rep_a = {names_a[k]: v for k, v in na.reputation.items()}
+        rep_b = {names_b[k]: v for k, v in nb.reputation.items()}
+        if rep_a != rep_b:
+            fail(f"heap twice: {na.name} reputations differ")
+    print(f"heap twice: lenet_paper_setup(n=10, compress='int8') cut to "
+          f"{ticks} ticks, training on, kernels: params, reputations and "
+          f"accuracy histories bitwise equal (stats {json.dumps(a.stats)})")
+
+
 def check_roundtrip_kernels(torch, lenet_params):
     """One broadcast's wire round trip runs exactly two device kernels."""
     from repro_torch.core import compression
@@ -1321,16 +1379,19 @@ def run_lax_paper(torch, n, *, profile_ticks=0):
     out = dict(n=n, wall_s=wall, ticks=cfg.ticks, ticks_per_s=cfg.ticks / wall,
                peak_gib=peak, launches=launches, training_ticks=want,
                honest_acc=float(acc[-1]), rep_mal=rep_mal, rep_hon=rep_hon,
-               ball_rep_mal=ball_mal, ball_rep_hon=ball_hon, setup_s=t2 - t0)
+               ball_rep_mal=ball_mal, ball_rep_hon=ball_hon, setup_s=t2 - t0,
+               result=res)
     if profile_ticks:
         profile_lax(torch, sc, spec, topo, cfg, profile_ticks)
     return out
 
 
-def profile_lax(torch, sc, spec, topo, cfg, ticks):
+def profile_lax(torch, sc, spec, topo, cfg, ticks, label=None):
     """Where the vectorized engine's time goes, on fresh runs of its first
-    ``ticks`` ticks: device busy / idle share and top device ops from the
-    profiler, the host's split by function from cProfile."""
+    ``ticks`` ticks (``spec`` one role sheet or a batch of them): device
+    busy / idle share and top device ops from the profiler, the host's
+    split by function from cProfile. Returns the profiled window's wall,
+    busy and idle share."""
     import cProfile
     import dataclasses
     import pstats
@@ -1355,7 +1416,9 @@ def profile_lax(torch, sc, spec, topo, cfg, ticks):
     for e in measured_events(prof):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
     busy = sum(by_name.values())
-    print(f"lax profile window n={sc.num_nodes} ({ticks} ticks, profiler on): "
+    label = label or f"n={sc.num_nodes}"
+    window = dict(wall_s=wall, busy_s=busy, idle=1 - busy / wall)
+    print(f"lax profile window {label} ({ticks} ticks, profiler on): "
           f"wall {wall:.3f} s, device busy {busy:.4f} s, device idle share "
           f"{1 - busy / wall:.4f}")
     for name, sec in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
@@ -1373,8 +1436,8 @@ def profile_lax(torch, sc, spec, topo, cfg, ticks):
     for (path, _, func), (_, _, _, ct, _) in pstats.Stats(pr).stats.items():
         key = f"{os.path.basename(path)}:{func}"
         cum[key] = cum.get(key, 0.0) + ct
-    print(f"lax host window ({ticks} ticks, cProfile on): wall {wall:.3f} s; "
-          "cumulative share of wall (nested entries overlap):")
+    print(f"lax host window {label} ({ticks} ticks, cProfile on): wall "
+          f"{wall:.3f} s; cumulative share of wall (nested entries overlap):")
     for key in ("simlax.py:_run", "simlax.py:_reduce", "simlax.py:_eval",
                 "scenarios.py:eval_stacked", "simlax.py:_train_and_send",
                 "scenarios.py:train_stacked", "scenarios.py:sgd_stacked",
@@ -1384,16 +1447,275 @@ def profile_lax(torch, sc, spec, topo, cfg, ticks):
                 "{method 'item' of 'torch._C.TensorBase' objects}"):
         if key in cum:
             print(f"  {key:48s} {cum[key]:8.3f} s  {cum[key] / wall:.3f}")
+    return window
 
 
-def time_lax_wire(torch, n):
+def time_lax_wire(torch, n, label=None):
     """K1 / K2 where the vectorized engine puts them: the stacked (n, ...)
     LeNet tree, one launch a direction."""
     from repro_torch.configs.lenet_dfl import CONFIG
     from repro_torch.models import lenet
     meta = lenet.init(torch.Generator(device="cpu"), CONFIG, "meta")
     shapes = [(n,) + tuple(x.shape) for x in _leaves(meta)]
-    return time_tree(torch, f"stacked LeNet tree n={n}", shapes, seed=9)
+    return time_tree(torch, label or f"stacked LeNet tree n={n}", shapes, seed=9)
+
+
+# ------------------------------------------------------------ phase 12
+LAX_ENGINES = ("compact", "sparse", "dense")
+SWEEP_ATTACKS = ("signflip", "gaussian", "scaled", "freerider", "intermittent")
+SWEEP_SEEDS = (0, 1, 2, 3)
+SWEEP_SINGLES = (("signflip", 1), ("intermittent", 2), ("honest", 3))
+
+
+def _hetero_specs(n, deterministic=False):
+    """tests/test_batched.py's eight federations, no two alike: mixed
+    attacks, a dead node, a straggler, an explicit countdown, honest
+    baselines; ``deterministic`` swaps the random attacks for signflip."""
+    from repro_torch.chain import attacks
+    gauss = "signflip" if deterministic else "gaussian"
+    inter = (attacks.make("intermittent", inner="signflip") if deterministic
+             else "intermittent")
+    build = attacks.FederationSpec.build
+    return [
+        build(n, malicious=(0,), attack=gauss),
+        build(n, malicious={2: "signflip", 5: gauss}, stragglers={7: 2}),
+        build(n, malicious=(1, 3), attack="scaled", dead=(n - 1,)),
+        build(n),
+        build(n, malicious=(4,), attack="freerider"),
+        build(n, malicious=(0, 2), attack=inter,
+              initial_countdown=[1 + (3 * i) % 7 for i in range(n)]),
+        build(n, dead=(2, 5)),
+        build(n, malicious=(6,), attack="signflip", stragglers={1: 3}),
+    ]
+
+
+def _member_same(a, b, what):
+    """A batch member against a single run: everything ``_lax_same``
+    compares, and the last broadcasts, bitwise."""
+    import numpy as np
+    _lax_same(a, b, what, floats="bitwise")
+    for x, y in zip(_leaves(a.sent), _leaves(b.sent)):
+        if not np.array_equal(x, y):
+            fail(f"{what}: broadcasts differ")
+
+
+def check_batched_toy(torch):
+    """Phase 12a: eight heterogeneous toy federations batched on the card,
+    every member bitwise its single card run on each engine; the compact
+    batch on the card against the CPU."""
+    from repro_torch.chain import attacks, scenarios, simlax
+    from repro_torch.core import topology
+    from repro_torch.core.reputation import IMPL2
+    n, ticks = 16, 48
+    sc, topo = scenarios.toy_scenario(n, dim=8), topology.kregular(n, 2)
+    seeds = [3 * b + 1 for b in range(8)]
+
+    def cfg(engine, seed=0, interval=(8, 12)):
+        return simlax.SimLaxConfig(ticks=ticks, train_interval=interval,
+                                   latency=2, ttl=2, record_every=10,
+                                   seed=seed, delivery=engine)
+
+    specs = _hetero_specs(n)
+    for engine in LAX_ENGINES:
+        t0 = time.perf_counter()
+        batch = simlax.LaxSimulator(
+            sc, topo, attacks.BatchedFederationSpec.build(specs, seeds), IMPL2,
+            cfg(engine), device="cuda").run()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for b, (spec, seed) in enumerate(zip(specs, seeds)):
+            single = simlax.LaxSimulator(sc, topo, spec, IMPL2,
+                                         cfg(engine, seed), device="cuda").run()
+            _member_same(batch[b], single, f"toy batch member {b} ({engine})")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"batched toy on the card, {engine}: 8 members (n {n}, {ticks} "
+              f"ticks) bitwise their single card runs; batch {t1 - t0:.3f} s, "
+              f"8 singles {t2 - t1:.3f} s; deliveries "
+              f"{[r.stats['deliveries'] for r in batch]}")
+    det = attacks.BatchedFederationSpec.build(_hetero_specs(n, True), seeds)
+    runs = {dev: simlax.LaxSimulator(sc, topo, det, IMPL2,
+                                     cfg("compact", interval=(8, 8)),
+                                     device=dev).run()
+            for dev in ("cuda", "cpu")}
+    gap = max(_lax_same(a, b, f"toy batch member {i} cuda vs cpu", floats="rtol")
+              for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])))
+    print(f"batched toy compact, cuda vs cpu (fixed intervals, deterministic "
+          f"attacks): events and reputations equal, max float gap {gap:.3e}")
+
+
+def check_sgd_graph(torch):
+    """The stacked SGD's CUDA-graph route (``scenarios.GRAPH_MODELS``)
+    against its eager route on the card, on the paper recipe's data at 1, 2
+    and 8 models (8 steps of 16 images): whether the two give the same bits,
+    and the wall time a call of each by CUDA events."""
+    from repro_torch import device as device_lib
+    from repro_torch import tree
+    from repro_torch.chain import scenarios
+    sc = scenarios.lenet_paper_setup(10)[0]
+    params, data = sc.init_params_stacked("cuda"), sc.train_data("cuda")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    with device_lib.deterministic():
+        for m in (1, 2, 8):
+            rows = torch.arange(m, device="cuda")
+            idx = torch.randint(0, data["labels"].shape[1],
+                                (m, sc.train_steps, sc.batch), generator=g,
+                                device="cuda")
+            models = tree.map(lambda x: x[rows], params)
+
+            def graphed():
+                return sc.sgd_stacked(models, data, rows, idx)
+
+            def eager():
+                return sc._sgd_steps(models, lambda s: {
+                    "images": data["images"][rows[:, None], idx[:, s]],
+                    "labels": data["labels"][rows[:, None], idx[:, s]]},
+                    idx.shape[1])
+
+            a, b = graphed(), eager()
+            same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                       for x, y in zip(tree.leaves(a), tree.leaves(b)))
+            gap = max(float((x - y).abs().max())
+                      for x, y in zip(tree.leaves(a), tree.leaves(b)))
+            ms = {"graph": event_ms(graphed, 20), "eager": event_ms(eager, 20)}
+            out[m] = dict(bitwise=same, max_gap=gap, **ms)
+            print(f"stacked SGD, {m} model(s) x {sc.train_steps} steps: graph "
+                  f"{ms['graph']:.3f} ms, eager {ms['eager']:.3f} ms a call; "
+                  f"graph vs eager bitwise {same} (max |diff| {gap:.3e})")
+    return out
+
+
+def _sweep_sheets(spec):
+    """The §VI-D sweep's six role sheets on the recipe's spec: its poisoners
+    under each attack, and all honest; every sheet keeps the recipe's
+    initial countdown."""
+    from repro_torch.chain import attacks
+    sheets = {a: attacks.FederationSpec.build(
+        spec.num_nodes, malicious=spec.malicious, attack=a,
+        initial_countdown=spec.initial_countdown) for a in SWEEP_ATTACKS}
+    sheets["honest"] = attacks.FederationSpec.build(
+        spec.num_nodes, initial_countdown=spec.initial_countdown)
+    return sheets
+
+
+def run_lax_sweep(torch, lax10):
+    """Phase 12b: the §VI-D sweep, 24 federations at full LeNet width in one
+    batched run, counted; members held to their single runs (phase 10's
+    among them) and the recipe's member to the JAX acceptance thresholds."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.chain import attacks, scenarios, simlax
+    from repro_torch.core.reputation import IMPL2
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    sc, spec, topo, cfg = scenarios.lenet_paper_setup(10, compress="int8")
+    sheets = _sweep_sheets(spec)
+    members = [(a, seed) for a in sheets for seed in SWEEP_SEEDS]
+    bspec = attacks.BatchedFederationSpec.build(
+        [sheets[a] for a, _ in members], [seed for _, seed in members])
+    sim = simlax.LaxSimulator(sc, topo, bspec, IMPL2, cfg, device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bsz = len(members)
+    want = _training_ticks(spec, cfg)
+    print(f"lax sweep: lenet_paper_setup(10, compress='int8') x "
+          f"{len(sheets)} role sheets x seeds {list(SWEEP_SEEDS)} = {bsz} "
+          f"federations in one batched run, compact engine, device=cuda")
+    print(f"lax sweep run: set-up {setup:.3f} s, wall {wall:.3f} s, "
+          f"{cfg.ticks / wall:.3f} ticks/s, {bsz / wall:.4f} federations/s, "
+          f"peak device memory {peak:.3f} GiB")
+    print(f"lax sweep launches: {json.dumps(launches, sort_keys=True)} "
+          f"(training ticks {want})")
+    for k in ("quantize", "dequantize"):
+        if launches.get(k, 0) != want:
+            fail(f"lax sweep: {k} launched {launches.get(k, 0)} times, not "
+                 f"once for each of the {want} training ticks of the batch")
+    recipe = members.index(("gaussian", 0))
+    _member_same(res[recipe], lax10["result"], "sweep (gaussian, 0) vs phase 10")
+    walls = [lax10["wall_s"]]
+    for key in SWEEP_SINGLES:
+        t1 = time.perf_counter()
+        single = simlax.LaxSimulator(sc, topo, sheets[key[0]], IMPL2,
+                                     dataclasses.replace(cfg, seed=key[1]),
+                                     device="cuda").run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        _member_same(res[members.index(key)], single, f"sweep {key}")
+    print(f"lax sweep: the (gaussian, 0) member is bitwise phase 10's run; "
+          f"members {list(SWEEP_SINGLES)} bitwise their single card runs "
+          f"(single walls {[round(w, 3) for w in walls]} s)")
+    fed_s, single_fed_s = bsz / wall, len(walls) / sum(walls)
+    print(f"lax sweep federations/s: batched {fed_s:.4f}, the {len(walls)} "
+          f"single runs {single_fed_s:.4f} -> {fed_s / single_fed_s:.3f}x")
+    mal = list(spec.malicious)
+    rows = []
+    for (name, seed), r in zip(members, res):
+        bad = mal if name != "honest" else []
+        honest = [i for i in range(spec.num_nodes) if i not in bad]
+        acc = float(r.acc_history[-1][honest].mean())
+        rep_p = float(np.mean([r.mean_reputation(i) for i in mal]))
+        rep_h = float(np.mean([r.mean_reputation(i) for i in honest]))
+        for leaf in _leaves(r.params):
+            if not np.isfinite(leaf).all():
+                fail(f"lax sweep ({name}, {seed}): params are not finite")
+        rows.append(dict(sheet=name, seed=seed, honest_acc=acc,
+                         rep_poisoners=rep_p, rep_honest=rep_h))
+        print(f"  sweep member {name:12s} seed {seed}: honest acc {acc:.4f}, "
+              f"reputation nodes {mal} {rep_p:.4f}, honest {rep_h:.4f}")
+    g0 = rows[recipe]
+    if g0["honest_acc"] < 0.90:
+        fail(f"lax sweep (gaussian, 0): honest accuracy {g0['honest_acc']:.4f} < 0.90")
+    if not g0["rep_poisoners"] < g0["rep_honest"] - 0.1:
+        fail(f"lax sweep (gaussian, 0): poisoners' reputation "
+             f"{g0['rep_poisoners']:.4f} is not below the honest "
+             f"{g0['rep_honest']:.4f} by 0.1")
+    window = profile_lax(torch, sc, bspec, topo, cfg, 24,
+                         label=f"batch of {bsz} x n=10")
+    return dict(batch=bsz, wall_s=wall, setup_s=setup, ticks=cfg.ticks,
+                ticks_per_s=cfg.ticks / wall, federations_per_s=fed_s,
+                single_walls_s=walls, single_federations_per_s=single_fed_s,
+                peak_gib=peak, launches=launches, training_ticks=want,
+                window=window, members=rows)
+
+
+def run_sweep_smoke(torch):
+    """Phase 12c: one ``sweeps.run_sweep`` of a small toy grid on the card
+    (its default devices: every visible CUDA device), and its frontier
+    tables."""
+    import numpy as np
+
+    from repro_torch.chain import simlax, sweeps
+    cells = sweeps.expand_grid(sizes=[12], attacks=[None, "gaussian"],
+                               seeds=[0, 1])
+    cfg = simlax.SimLaxConfig(ticks=30, train_interval=(6, 8), ttl=2,
+                              record_every=6)
+    t0 = time.perf_counter()
+    outcomes = sweeps.run_sweep(cells, cfg=cfg, target_acc=0.4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(outcomes) != len(cells) or any(
+            o.stats["batch_size"] != len(cells) for o in outcomes):
+        fail("run_sweep: not one batch of every cell")
+    for o in outcomes:
+        if not 0.0 <= o.final_honest_acc <= 1.0 or not np.isfinite(
+                o.honest_reputation):
+            fail(f"run_sweep: bad outcome {o.row()}")
+    tables = sweeps.frontier_tables(outcomes, target_acc=0.4)
+    print(f"run_sweep on the card: {len(cells)} cells (n 12, attacks none / "
+          f"gaussian x seeds 0, 1) in one batch, {wall:.3f} s")
+    print("run_sweep frontier tables: " + json.dumps(tables, sort_keys=True))
 
 
 def main() -> int:
@@ -1452,8 +1774,10 @@ def main() -> int:
     # phase 4: the LeNet main path, counted
     launches = run_main_path(torch)
 
-    # phase 5: a reference on a small input, then where the time goes
+    # phase 5: a reference on a small input, two seeded heap runs bitwise,
+    # then where the time goes
     check_small_federation(torch)
+    check_heap_twice(torch)
     check_roundtrip_kernels(torch, params)
     profile_window(torch)
 
@@ -1488,14 +1812,32 @@ def main() -> int:
     # phase 11: 1024 nodes, counted and profiled; the wire kernels at its
     # stacked tree
     lax1024 = run_lax_paper(torch, 1024, profile_ticks=24)
+    lax1024.pop("result")
     for kname, row in zip(("quantize", "dequantize"), time_lax_wire(torch, 1024)):
         times[kname]["lax"] = dict(
             stacked_n1024=row, launches_n10=lax10["launches"][kname],
             launches_n1024=lax1024["launches"][kname])
-    print("lax runs: " + json.dumps({"n10": lax10, "n1024": lax1024},
-                                    sort_keys=True))
 
-    # phase 12: report
+    # phase 12: batched runs — the toy batch on every engine, the §VI-D
+    # sweep of 24 LeNet federations (counted), one run_sweep; the wire
+    # kernels at the sweep's stacked tree (24 members x 2 trainers)
+    check_batched_toy(torch)
+    sgd_graph = check_sgd_graph(torch)
+    sweep = run_lax_sweep(torch, lax10)
+    sweep["sgd_graph"] = sgd_graph
+    lax10.pop("result")
+    run_sweep_smoke(torch)
+    rows = 2 * sweep["batch"]
+    for kname, row in zip(("quantize", "dequantize"),
+                          time_lax_wire(torch, rows, f"sweep's stacked LeNet tree "
+                                        f"({sweep['batch']} members x 2 trainers)")):
+        times[kname]["lax"].update(
+            {f"stacked_batch{sweep['batch']}": row,
+             f"launches_batch{sweep['batch']}": sweep["launches"][kname]})
+    print("lax runs: " + json.dumps({"n10": lax10, "n1024": lax1024,
+                                     "sweep": sweep}, sort_keys=True))
+
+    # phase 13: report
     kernels = []
     for kname, src, replaces, err in (
             ("quantize", "src/repro_torch/csrc/quantize.cu",

@@ -34,8 +34,8 @@ node) from a hash of the four. The draws differ from the JAX package's;
 the structure (which node draws from which stream on which tick, and the
 fold constants of ``attack_fold``) is the same. ``stream_key_at`` seeds
 the vectorized engine's other per-tick streams the same way.
-``BatchedFederationSpec`` is the batched engine's role sheet; the port
-runs one federation at a time so far.
+``BatchedFederationSpec`` is the batched engine's role sheet: B same-N
+members, one seed each, run together by ``LaxSimulator``.
 """
 from __future__ import annotations
 
@@ -416,6 +416,10 @@ class FederationSpec:
                                else tuple(int(c) for c in initial_countdown)),
             membership=membership)
 
+    @classmethod
+    def honest(cls, num_nodes: int) -> "FederationSpec":
+        return cls(num_nodes=num_nodes)
+
     # ------------------------------------------------------------- accessors
     @property
     def malicious(self) -> Tuple[int, ...]:
@@ -426,6 +430,9 @@ class FederationSpec:
             if i == node_id:
                 return a
         return None
+
+    def straggler_map(self) -> Dict[int, int]:
+        return dict(self.stragglers)
 
     def attack_groups(self) -> List[Tuple[object, np.ndarray]]:
         """Attackers grouped by attack instance, as (attack, (N,) bool mask)
@@ -441,6 +448,16 @@ class FederationSpec:
                 groups.append((a, np.zeros((self.num_nodes,), np.bool_)))
             groups[index[a]][1][i] = True
         return groups
+
+    def attack_fold_of(self, attack) -> Optional[int]:
+        """The fold constant THIS spec assigns ``attack`` (its position in
+        ``attack_groups()`` order through ``attack_fold``), or None if no
+        node of the spec runs it. Batched runs use it to give every member
+        its own single-run attack streams."""
+        for gi, (a, _) in enumerate(self.attack_groups()):
+            if a == attack:
+                return attack_fold(gi)
+        return None
 
     def attack_key_fns(self, seed: int, device="cpu") -> Dict[int, Callable]:
         """Per-attacker ``tick -> torch.Generator`` streams for the heap
@@ -462,11 +479,14 @@ class FederationSpec:
 class BatchedFederationSpec:
     """A stack of same-N ``FederationSpec`` role sheets, one seed each: the
     unit the batched vectorized engine runs together (the JAX package's
-    ``BatchedFederationSpec``). The port's ``LaxSimulator`` does not run
-    batches yet and raises on one.
+    ``BatchedFederationSpec``). Topology, scenario and ``SimLaxConfig`` are
+    shared by the simulator; attacker sheets, dead sets, stragglers,
+    countdowns, membership and seeds may differ per member.
 
     specs: (B,) FederationSpec members
-    seeds: (B,) per-member engine seeds, or None for the config's seed
+    seeds: (B,) per-member engine seeds (member b's run is bitwise the
+        single run of ``specs[b]`` under ``SimLaxConfig(seed=seeds[b])``),
+        or None to run every member at the config's seed
     """
     specs: Tuple[FederationSpec, ...]
     seeds: Optional[Tuple[int, ...]] = None
@@ -491,3 +511,42 @@ class BatchedFederationSpec:
         return cls(specs=tuple(specs),
                    seeds=None if seeds is None
                    else tuple(int(s) for s in seeds))
+
+    # ------------------------------------------------------------- accessors
+    @property
+    def batch_size(self) -> int:
+        return len(self.specs)
+
+    @property
+    def num_nodes(self) -> int:
+        return self.specs[0].num_nodes
+
+    def resolved_seeds(self, default_seed: int) -> Tuple[int, ...]:
+        return (self.seeds if self.seeds is not None
+                else (int(default_seed),) * len(self.specs))
+
+    def dead_sets(self) -> Tuple[Tuple[int, ...], ...]:
+        """(B,) dead-node tuples, the ``topology.batch_budgets`` input."""
+        return tuple(s.dead for s in self.specs)
+
+    def attack_union(self) -> List[Tuple[object, np.ndarray, np.ndarray]]:
+        """Distinct attack instances across the batch, in first-appearance
+        order (member-major), as ``(attack, (B, N) bool mask, (B,) int32
+        folds)`` triples. ``mask[b]`` marks member b's nodes running the
+        attack; ``folds[b]`` is the fold constant member b's OWN
+        ``attack_groups()`` order assigns it (``attack_fold``), so each
+        member draws its single run's attack streams. Members without the
+        attack get an all-False mask (their fold entry is unused)."""
+        b_n = (len(self.specs), self.num_nodes)
+        union: List[Tuple[object, np.ndarray, np.ndarray]] = []
+        index: Dict[object, int] = {}
+        for b, s in enumerate(self.specs):
+            for gi, (a, mask) in enumerate(s.attack_groups()):
+                if a not in index:
+                    index[a] = len(union)
+                    union.append((a, np.zeros(b_n, np.bool_),
+                                  np.zeros((b_n[0],), np.int32)))
+                _, masks, folds = union[index[a]]
+                masks[b] = mask
+                folds[b] = attack_fold(gi)
+        return union

@@ -10,7 +10,9 @@ heap-based event queue keyed by delivery tick.
 
 Port of the JAX package's ``repro.chain.network``: pure Python over
 nodes, so with the same ``SimConfig.seed`` the event order drawn from
-``random.Random`` is the JAX package's, event for event.
+``random.Random`` is the JAX package's, event for event. ``run`` holds cuDNN
+to deterministic algorithms (``device.deterministic``), so a seeded run
+gives the same bits on the card every time.
 
 Dynamic membership (``set_membership``): a ``repro_torch.chain.attacks.
 MembershipSchedule`` drives per-tick join/leave/rejoin events. Offline nodes
@@ -30,6 +32,7 @@ import heapq
 import random
 from typing import Callable, Dict, List, Optional, Sequence
 
+from repro_torch import device as device_lib
 from repro_torch.chain.node import DFLNode
 from repro_torch.chain.types import Receipt
 
@@ -219,6 +222,11 @@ class Simulator:
 
     # -------------------------------------------------------------------- run
     def run(self, progress: Optional[Callable] = None):
+        with device_lib.deterministic():
+            self._run(progress)
+        return self
+
+    def _run(self, progress):
         for tick in range(self.cfg.ticks):
             if self.membership is not None:
                 # top of tick, BEFORE delivery — same order as the lax
@@ -247,7 +255,6 @@ class Simulator:
                         node.record(tick, float(self.test_fn(node.params)))
                 if progress:
                     progress(tick, self)
-        return self
 
 
 def fully_connected(names: Sequence[str]) -> Dict[str, List[str]]:

@@ -301,6 +301,8 @@ class LeNetScenario:
     seed: int
     _cache: _DeviceCache = dataclasses.field(
         default_factory=_DeviceCache, repr=False, compare=False)
+    _graphs: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def num_nodes(self) -> int:
@@ -361,13 +363,32 @@ class LeNetScenario:
 
     def sgd_stacked(self, models, data, rows, idx):
         """M models' SGD steps at once: model m trains on pool ``rows[m]``,
-        step s on its rows ``idx[m, s]``."""
-        p = models
-        for s in range(idx.shape[1]):
+        step s on its rows ``idx[m, s]``. On the card, calls of at most
+        ``GRAPH_MODELS`` models replay one captured CUDA graph a model
+        count (the same kernels at the same shapes, a few launches in
+        place of hundreds); larger calls, and the CPU, run eagerly."""
+        if rows.is_cuda and rows.shape[0] <= GRAPH_MODELS:
+            # all steps' batches at once, step-major: (steps, M, batch, ...)
+            pick = (rows[None, :, None], idx.transpose(0, 1))
+            images, labels = data["images"][pick], data["labels"][pick]
+            key = (rows.shape[0], tuple(idx.shape[1:]), str(rows.device),
+                   torch.backends.cudnn.deterministic)
+            if key not in self._graphs:
+                self._graphs[key] = _SGDGraph(self, models, images, labels)
+            return self._graphs[key](models, images, labels)
+
+        def batch(s):
             pick = (rows[:, None], idx[:, s])
-            batch = {"images": data["images"][pick], "labels": data["labels"][pick]}
+            return {"images": data["images"][pick], "labels": data["labels"][pick]}
+
+        return self._sgd_steps(models, batch, idx.shape[1])
+
+    def _sgd_steps(self, models, batch, steps):
+        """``steps`` SGD steps of the stacked models, step s on ``batch(s)``."""
+        p = models
+        for s in range(steps):
             leaves = [x.detach().requires_grad_(True) for x in tree.leaves(p)]
-            losses = lenet.losses_stacked(tree.unflatten(p, leaves), batch)
+            losses = lenet.losses_stacked(tree.unflatten(p, leaves), batch(s))
             grads = torch.autograd.grad(losses.sum(), leaves)
             with torch.no_grad():
                 p = tree.unflatten(
@@ -400,6 +421,44 @@ class LeNetScenario:
 # model-image pairs a stacked forward takes at once: bounds the activations
 # of an evaluation over many models (2**17 pairs: ~2.5 GB for conv1's)
 EVAL_PAIRS = 1 << 17
+
+# the largest stacked SGD call that runs as a captured CUDA graph: below it
+# the call is bound by the host's launches (a few trainers a tick, or one
+# member of a batch), above it by the card
+GRAPH_MODELS = 32
+
+
+class _SGDGraph:
+    """``LeNetScenario._sgd_steps`` over M stacked models, captured once as
+    a CUDA graph: a call copies the models and the steps' batches into the
+    graph's input buffers, replays it and copies the trained models out.
+    Warm-up runs on a side stream before the capture, as CUDA graphs
+    require."""
+
+    def __init__(self, scenario, models, images, labels):
+        self.models = tree.map(torch.clone, models)
+        self.images, self.labels = images.clone(), labels.clone()
+        steps = images.shape[0]
+
+        def batch(s):
+            return {"images": self.images[s], "labels": self.labels[s]}
+
+        side = torch.cuda.Stream(device=images.device)
+        side.wait_stream(torch.cuda.current_stream(images.device))
+        with torch.cuda.stream(side):
+            scenario._sgd_steps(self.models, batch, steps)
+        torch.cuda.current_stream(images.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = scenario._sgd_steps(self.models, batch, steps)
+
+    def __call__(self, models, images, labels):
+        for dst, src in zip(tree.leaves(self.models), tree.leaves(models)):
+            dst.copy_(src)
+        self.images.copy_(images)
+        self.labels.copy_(labels)
+        self.graph.replay()
+        return tree.map(torch.clone, self.out)
 
 
 def _accuracy_chunked(models, images, labels):

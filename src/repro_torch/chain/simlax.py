@@ -1,10 +1,10 @@
 """Vectorized tick simulator: the paper's §VI-D network experiments at
 thousand-node scale, on one device.
 
-Port of the JAX package's ``repro.chain.simlax`` single-run engine in eager
-PyTorch. The heap ``Simulator`` (``repro_torch.chain.network``) walks an
-event queue one message at a time; this engine runs the same tick process
-with every per-node action batched over the federation:
+Port of the JAX package's ``repro.chain.simlax`` engine in eager PyTorch.
+The heap ``Simulator`` (``repro_torch.chain.network``) walks an event queue
+one message at a time; this engine runs the same tick process with every
+per-node action batched over the federation:
 
 * the tick loop is a Python loop (the JAX engine's ``lax.scan``); the state
   lives on ``device`` (CUDA unless the caller asks for the CPU);
@@ -41,31 +41,55 @@ Receipt evaluation has three interchangeable engines
 ``dense``
     Evaluates all N² (dst, src) pairs, masked by dueness: the oracle.
 
-``sharded`` (ROADMAP queue 1 item 12) and batched runs over a
-``BatchedFederationSpec`` (item 10) are not ported and raise
+``sharded`` (ROADMAP queue 1 item 12) is not ported and raises
 ``NotImplementedError``.
 
-Host synchronisations: two a tick, both reads of integer state the next
-step branches on — the tick's due count (whether any delivery is due, and
-the work buffer's length) and the set of nodes that train. The JAX
-engine's ``lax.cond`` over the whole federation becomes a Python ``if``;
-only the training nodes train, and only the training attackers run their
-attack (the JAX engine computes every node and masks; the results are the
-same).
+Batched runs: constructed from a ``BatchedFederationSpec`` (B same-N role
+sheets, one seed each; one shared scenario, topology and config), the
+engine runs the B federations together and ``run()`` returns a list of B
+``SimLaxResult``s. A single run is the batch of one. Every state tensor and
+per-member constant carries a leading batch axis; the slot width and the
+compaction bound take the max over the members
+(``topology.batch_budgets``). Member b is bitwise the single run of
+``specs[b]`` at ``SimLaxConfig(seed=seeds[b])``, on every engine:
+
+* each member draws from its own generators (below);
+* the compact work buffer holds the batch's due items member-major, and
+  one ``segment_reduce`` over (member, receiver) segments sums each
+  receiver's receipts in its single run's order;
+* the stacked train, eval and test calls run once per member, so each call
+  has its single run's shape: one call over every member's models changes
+  a model's bits (on the CPU a LeNet SGD step over 24 stacked models
+  differs from the same step over 2 in the last bits, as the convolution
+  and matrix-product kernels block the work by the whole shape);
+* everything else (delivery bookkeeping, the reduction, FedAvg, the
+  punishment, the int8 wire) runs once for the whole batch: one
+  ``compression.roundtrip_tree`` a training tick over all members'
+  outgoing rows, whose blocks run along the last axis only.
+
+Host synchronisations: two a tick for the whole batch, both reads of
+integer state the next step branches on — the (B,) due counts (whether any
+delivery is due, and the work buffer's length) and the (B, N) set of nodes
+that train. The JAX engine's ``lax.cond`` over the whole federation becomes
+a Python ``if``; only the training nodes train, and only the training
+attackers run their attack (the JAX engine computes every node and masks;
+the results are the same).
 
 Randomness (``repro_torch.chain.attacks``): the JAX engine's
 ``fold_in(PRNGKey(seed), t)`` streams become generators on ``device``
 seeded from (seed, tick, fold) by ``attacks.stream_key_at`` — fold 0 draws
-the tick's train batches, fold 2 the train-interval redraw, fold 12345 of
-the base key the initial countdowns — and each attacker draws from its own
-``attacks.attack_key_at(seed, tick, attack_fold(group), node)``, the
-generator the heap engine's ``DFLNode`` uses, so randomized attacks agree
-bit for bit across the two engines. A fixed interval (``lo == hi``) draws
-nothing. The draws differ from the JAX package's, as every port draw does.
+the tick's train batches (all N nodes' indices, so a node's batch does not
+depend on who trains), fold 2 the train-interval redraw, fold 12345 of the
+base key the initial countdowns — and each attacker draws from its own
+``attacks.attack_key_at(seed, tick, fold, node)``, where ``fold`` is the
+member's own ``attack_fold(group)``: the generator the heap engine's
+``DFLNode`` uses, so randomized attacks agree bit for bit across the two
+engines. A fixed interval (``lo == hi``) draws nothing. The draws differ
+from the JAX package's, as every port draw does.
 
 Determinism on the card: every reduction is ordered (segment sums, matrix
 products, ``amin``), scatters write each real target once, and cuDNN is
-held to deterministic algorithms for the run.
+held to deterministic algorithms for the run (``device.deterministic``).
 
 Dynamic membership (``FederationSpec.membership``) follows the JAX engine:
 events apply at the top of the tick, offline nodes freeze their train
@@ -147,34 +171,38 @@ class SimLaxResult:
 
 
 def _col(v, like):
-    """(N,) ``v`` shaped to broadcast over the leading axis of ``like``."""
-    return v.reshape((-1,) + (1,) * (like.dim() - 1))
+    """``v`` shaped to broadcast over the leading axes of ``like`` that it
+    covers ((B, N) against (B, N, ...), (M,) against (M, ...))."""
+    return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
 
 
 class LaxSimulator:
-    """Drives a vectorized federation over a virtual-time network::
+    """Drives a vectorized federation, or a batch of them, over a
+    virtual-time network::
 
         LaxSimulator(scenario, topology, spec, rep_impl, cfg, device="cuda")
 
     * ``scenario`` — a ``repro_torch.chain.scenarios.Scenario`` (its stacked
       ``train_stacked`` / ``eval_stacked`` / ``test_stacked``);
     * ``spec`` — a ``FederationSpec`` role sheet, the one the heap
-      simulator is built from (``scenarios.make_heap_simulator``);
+      simulator is built from (``scenarios.make_heap_simulator``), or a
+      ``BatchedFederationSpec`` of B of them; ``run()`` then returns B
+      results;
     * ``device`` — where the state and the work live; ``"cuda"`` raises
       without a CUDA device.
     """
 
     def __init__(self, scenario, topology: topology_lib.Topology, spec,
                  rep_impl, cfg: SimLaxConfig, *, device="cuda"):
-        if isinstance(spec, BatchedFederationSpec):
-            raise NotImplementedError(
-                "batched runs (BatchedFederationSpec) are not ported yet: "
-                "ROADMAP queue 1 item 10")
         self.device = dev = device_lib.resolve(device)
         n = topology.num_nodes
-        if spec.num_nodes != n:
-            raise ValueError(
-                f"spec is for {spec.num_nodes} nodes, topology has {n}")
+        batched = isinstance(spec, BatchedFederationSpec)
+        specs = spec.specs if batched else (spec,)
+        for b, s in enumerate(specs):
+            if s.num_nodes != n:
+                raise ValueError(
+                    (f"batch member {b}'s spec" if batched else "spec")
+                    + f" is for {s.num_nodes} nodes, topology has {n}")
         if cfg.latency < 1:
             raise ValueError(
                 "latency must be >= 1 tick (0 would schedule arrivals at "
@@ -191,6 +219,11 @@ class LaxSimulator:
             raise ValueError(
                 f"SimLaxConfig.shards only applies to delivery='sharded' "
                 f"(got delivery={cfg.delivery!r})")
+        if cfg.delivery == "sharded" and batched:
+            raise ValueError(
+                "delivery='sharded' does not compose with "
+                "BatchedFederationSpec: run sharded federations one at a "
+                "time, or batch with the compact engine")
         if cfg.delivery == "sharded":
             raise NotImplementedError(
                 "delivery='sharded' is not ported yet: ROADMAP queue 1 "
@@ -210,75 +243,101 @@ class LaxSimulator:
                 f"compact_budget must be >= 1, got {cfg.compact_budget}")
         self.scenario, self.topology, self.spec = scenario, topology, spec
         self.rep_impl, self.cfg = rep_impl, cfg
+        self._batched = batched
+        self._specs = specs
+        self.batch_size = len(specs) if batched else None
+        self._seeds = spec.resolved_seeds(cfg.seed) if batched else (cfg.seed,)
 
-        # flooding routes only through alive nodes; the engine consumes
-        # distances <= ttl only, so the BFS stops there
-        alive = np.ones((n,), np.bool_)
-        alive[list(spec.dead)] = False
-        adj = topology.adj & alive[None, :] & alive[:, None]
-        dist = topology_lib.hop_distance_from_adj(adj, max_hops=cfg.ttl)
-        reach = (dist >= 1) & (dist <= cfg.ttl)
-        delay = np.where(reach, dist * cfg.latency, 0).astype(np.int32)
-        budgets = topology_lib.batch_budgets(
-            topology.adj, cfg.ttl, cfg.train_interval, [spec.dead],
-            latency=cfg.latency, dists=[dist])
-        # slot width: the largest ttl-ball; slot k of dst is its k-th
-        # in-ball sender in ascending src order (padding slots map to
-        # non-reach senders, never due)
-        self.delivery_budget = budget = budgets.delivery
+        # per member: flooding routes only through alive nodes; the engine
+        # consumes distances <= ttl only, so the BFS stops there
+        alives, dists, reaches, delays = [], [], [], []
+        for s in specs:
+            alive = np.ones((n,), np.bool_)
+            alive[list(s.dead)] = False
+            adj = topology.adj & alive[None, :] & alive[:, None]
+            dist = topology_lib.hop_distance_from_adj(adj, max_hops=cfg.ttl)
+            reach = (dist >= 1) & (dist <= cfg.ttl)
+            alives.append(alive)
+            dists.append(dist)
+            reaches.append(reach)
+            delays.append(np.where(reach, dist * cfg.latency, 0).astype(np.int32))
+        # one slot width and one work-buffer bound serve every member: the
+        # max over the batch
+        self.budgets = topology_lib.batch_budgets(
+            topology.adj, cfg.ttl, cfg.train_interval, [s.dead for s in specs],
+            latency=cfg.latency, dists=dists)
+        # slot k of dst is its k-th in-ball sender in ascending src order
+        # (padding slots map to non-reach senders, never due)
+        self.delivery_budget = budget = self.budgets.delivery
         self.compact_budget = min(
-            budgets.compaction if cfg.compact_budget is None
+            self.budgets.compaction if cfg.compact_budget is None
             else int(cfg.compact_budget), n * budget)
-        slot_src = np.argsort(~reach, axis=1, kind="stable")[:, :budget]
-        self._slot_src_np = slot_src.astype(np.int32)
+        slot_srcs = [np.argsort(~reach, axis=1, kind="stable")[:, :budget]
+                     for reach in reaches]
+        self._slot_src_np = np.stack(slot_srcs).astype(np.int32)  # (B, N, budget)
 
-        def on_dev(a, dtype=None):
-            return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
+        def on_dev(arrays, dtype=None):
+            return torch.as_tensor(np.stack(arrays), device=dev, dtype=dtype)
 
-        self._consts = {"alive": on_dev(alive),
-                        "slot_src": on_dev(slot_src, torch.int64)}
+        self._consts = {"alive": on_dev(alives),
+                        "slot_src": on_dev(slot_srcs, torch.int64)}
         if cfg.delivery == "compact":
             # the inverse slot map: for each sender, the (dst, slot, delay)
             # triples it lands in; padding rows point at the dropped row n
-            slot_of = np.full((n, n), -1, np.int64)
-            slot_of[np.arange(n)[:, None], slot_src] = np.arange(budget)[None, :]
-            slot_of[~reach] = -1
-            inv_dst = np.full((n, budget), n, np.int64)
-            inv_slot = np.zeros((n, budget), np.int64)
-            inv_delay = np.zeros((n, budget), np.int32)
-            for src in range(n):
-                dsts = np.flatnonzero(reach[:, src])
-                inv_dst[src, :len(dsts)] = dsts
-                inv_slot[src, :len(dsts)] = slot_of[dsts, src]
-                inv_delay[src, :len(dsts)] = delay[dsts, src]
-            self._consts.update(inv_dst=on_dev(inv_dst),
-                                inv_slot=on_dev(inv_slot),
-                                inv_delay=on_dev(inv_delay))
+            inv_dsts, inv_slots, inv_delays = [], [], []
+            for reach, delay, slot_src in zip(reaches, delays, slot_srcs):
+                slot_of = np.full((n, n), -1, np.int64)
+                slot_of[np.arange(n)[:, None], slot_src] = np.arange(budget)[None, :]
+                slot_of[~reach] = -1
+                inv_dst = np.full((n, budget), n, np.int64)
+                inv_slot = np.zeros((n, budget), np.int64)
+                inv_delay = np.zeros((n, budget), np.int32)
+                for src in range(n):
+                    dsts = np.flatnonzero(reach[:, src])
+                    inv_dst[src, :len(dsts)] = dsts
+                    inv_slot[src, :len(dsts)] = slot_of[dsts, src]
+                    inv_delay[src, :len(dsts)] = delay[dsts, src]
+                inv_dsts.append(inv_dst)
+                inv_slots.append(inv_slot)
+                inv_delays.append(inv_delay)
+            self._consts.update(inv_dst=on_dev(inv_dsts),
+                                inv_slot=on_dev(inv_slots),
+                                inv_delay=on_dev(inv_delays))
         else:
-            self._consts.update(reach=on_dev(reach), delay=on_dev(delay))
+            self._consts.update(reach=on_dev(reaches), delay=on_dev(delays))
 
-        # attacks: one group per distinct instance, run over its static
-        # attacker ids; group order keys the attack folds
-        groups = spec.attack_groups()
-        self._attacks = tuple(
-            (attacks_lib.attack_fold(g), attack, np.flatnonzero(mask))
-            for g, (attack, mask) in enumerate(groups))
-        self._malicious = np.zeros((n,), np.bool_)
-        self._malicious[list(spec.malicious)] = True
-        strag = np.ones((n,), np.int32)
-        for k, v in spec.stragglers:
-            strag[k] = v
-        self._consts["straggler"] = on_dev(strag)
+        # attacks: one entry per distinct instance over the batch, with the
+        # (B, N) mask of its attackers and each member's own fold constant
+        self._attacks = tuple(BatchedFederationSpec.build(specs).attack_union())
+        self._malicious = np.zeros((len(specs), n), np.bool_)
+        strag = np.ones((len(specs), n), np.int32)
+        for b, s in enumerate(specs):
+            self._malicious[b, list(s.malicious)] = True
+            for k, v in s.straggler_map().items():
+                strag[b, k] = v
+        self._consts["straggler"] = torch.as_tensor(strag, device=dev)
 
-        # membership: dense per-tick masks, expanded once on the host
-        self._membership = spec.membership is not None
+        # membership: dense per-tick masks, expanded once on the host; a
+        # member without churn keeps its static alive mask and decrements
+        # every countdown each tick, as its single run does
+        self._membership = any(s.membership is not None for s in specs)
         if self._membership:
-            alive_t, rejoin_t = spec.membership.timeline(n, cfg.ticks,
-                                                         dead=spec.dead)
-            self._rejoin_np = rejoin_t
+            alive_ts, rejoin_ts, decays = [], [], []
+            for s, alive in zip(specs, alives):
+                if s.membership is None:
+                    alive_ts.append(np.tile(alive, (cfg.ticks, 1)))
+                    rejoin_ts.append(np.zeros((cfg.ticks, n), np.bool_))
+                    decays.append(np.float32(1.0))
+                else:
+                    a_t, r_t = s.membership.timeline(n, cfg.ticks, dead=s.dead)
+                    alive_ts.append(a_t)
+                    rejoin_ts.append(r_t)
+                    decays.append(np.float32(s.membership.rejoin_decay))
+            self._rejoin_any = np.stack(rejoin_ts).any(axis=(0, 2))   # (ticks,)
             self._consts.update(
-                alive_t=on_dev(alive_t), rejoin_t=on_dev(rejoin_t),
-                rejoin_decay=on_dev(np.float32(spec.membership.rejoin_decay)))
+                alive_t=on_dev(alive_ts),
+                rejoin_t=on_dev(rejoin_ts), rejoin_decay=on_dev(decays),
+                churn=on_dev([s.membership is not None for s in specs]))
 
         self._eval_data = scenario.eval_data(dev)
         self._train_data = scenario.train_data(dev)
@@ -292,61 +351,88 @@ class LaxSimulator:
                              device=self.device, dtype=torch.int32)
 
     def _initial_countdown(self):
+        """(B, N): each member's sheet, else its seeded draw (heap parity:
+        the FIRST countdown is not straggler-scaled)."""
         n = self.topology.num_nodes
-        if self.spec.initial_countdown is not None:
-            return torch.as_tensor(self.spec.initial_countdown,
-                                   dtype=torch.int32, device=self.device)
-        # heap parity: the FIRST countdown is not straggler-scaled
-        return self._intervals(attacks_lib.stream_key_at(
-            self.cfg.seed, None, _COUNTDOWN_FOLD, self.device), n)
+        rows = []
+        for s, seed in zip(self._specs, self._seeds):
+            if s.initial_countdown is not None:
+                rows.append(torch.as_tensor(s.initial_countdown,
+                                            dtype=torch.int32, device=self.device))
+            else:
+                rows.append(self._intervals(attacks_lib.stream_key_at(
+                    seed, None, _COUNTDOWN_FOLD, self.device), n))
+        return torch.stack(rows)
+
+    def _fresh_intervals(self, t, members):
+        """(B, N) train intervals drawn at tick ``t`` for the members that
+        train (rows of the others are never read)."""
+        b_n = self._consts["alive"].shape
+        lo, hi = self.cfg.train_interval
+        if lo == hi:
+            return torch.full(b_n, lo, dtype=torch.int32, device=self.device)
+        fresh = torch.zeros(b_n, dtype=torch.int32, device=self.device)
+        for b in members.tolist():
+            fresh[b] = self._intervals(attacks_lib.stream_key_at(
+                self._seeds[b], t, _INTERVAL_FOLD, self.device), b_n[1])
+        return fresh
 
     # ------------------------------------------------------------- delivery
     # The three engines differ only in which (receiver, sender) items they
     # evaluate: dense all N² pairs, sparse all N * budget ball slots,
-    # compact the tick's due slots. Items come grouped by receiver, in
-    # ascending sender order, and ``_reduce`` folds them back the same way
-    # for all three, so the engines agree bit for bit.
-    def _items_dense(self, due):
-        n = due.shape[0]
-        ar = torch.arange(n, device=self.device)
-        return (ar.repeat_interleave(n), ar.repeat(n), due.reshape(-1),
-                torch.full_like(ar, n))
+    # compact the tick's due slots. Items come grouped by (member,
+    # receiver), in ascending sender order; receivers are numbered over the
+    # flattened (B * N) batch and senders within their member. ``_reduce``
+    # folds them back the same way for all three, so the engines agree bit
+    # for bit. Each returns (rcv, src, ok, lengths, spans): ``spans[b]``
+    # counts member b's items.
+    def _items_dense(self, due, counts):
+        bsz, n, _ = due.shape
+        ar = torch.arange(bsz * n, device=self.device)
+        return (ar.repeat_interleave(n), ar[:n].repeat(bsz * n),
+                due.reshape(-1), torch.full_like(ar, n), [n * n] * bsz)
 
-    def _items_sparse(self, due):
-        n, budget = due.shape[0], self.delivery_budget
+    def _items_sparse(self, due, counts):
+        bsz, n, budget = due.shape[0], due.shape[1], self.delivery_budget
         slot_src = self._consts["slot_src"]
-        ar = torch.arange(n, device=self.device)
+        ar = torch.arange(bsz * n, device=self.device)
         return (ar.repeat_interleave(budget), slot_src.reshape(-1),
-                torch.gather(due, 1, slot_src).reshape(-1),
-                torch.full_like(ar, budget))
+                torch.gather(due, 2, slot_src).reshape(-1),
+                torch.full_like(ar, budget), [n * budget] * bsz)
 
-    def _items_compact(self, due, count):
-        """The ``count`` due (receiver, slot) pairs of the (N, budget)
-        slot-layout dueness, gathered into one work buffer without a host
-        sync: due item k goes to buffer slot cumsum - 1 (ascending, so
-        receivers stay grouped and slots stay in ascending-src order), the
-        rest to the spare slot ``count``, which is dropped."""
-        n, budget = due.shape
+    def _items_compact(self, due, counts):
+        """The due (receiver, slot) pairs of the (B, N, budget) slot-layout
+        dueness, gathered into one work buffer of the batch's total count
+        without a host sync: due item k goes to buffer slot cumsum - 1
+        (ascending, so members and receivers stay grouped and slots stay in
+        ascending-src order), the rest to the spare slot, which is
+        dropped."""
+        budget = due.shape[2]
+        count = int(counts.sum())
         flat_ok = due.reshape(-1)
         pos = torch.cumsum(flat_ok, 0) - 1
         buf = torch.empty((count + 1,), dtype=torch.int64, device=self.device)
         buf.scatter_(0, torch.where(flat_ok, pos, count),
-                     torch.arange(n * budget, device=self.device))
+                     torch.arange(flat_ok.shape[0], device=self.device))
         flat_idx = buf[:count]
         src = self._consts["slot_src"].reshape(-1)[flat_idx]
         return (flat_idx // budget, src, torch.ones_like(src, dtype=torch.bool),
-                due.sum(1))
+                due.sum(2).reshape(-1), counts.tolist())
 
-    def _reduce(self, s, due, rcv, src, ok, lengths):
+    def _reduce(self, s, counts, rcv, src, ok, lengths, spans):
         """Evaluate each item (sender ``src``'s in-flight model on receiver
-        ``rcv``'s data), weight it by Eq. 2, and fold the receivers' items
-        into the streaming Eq. 3 buffer and the running (min accuracy,
-        lowest-src argmin) pair. ``ok`` masks items that are not due;
-        ``lengths`` counts each receiver's items."""
-        n = due.shape[0]
+        ``rcv``'s data), weight it by Eq. 2, and fold each (member,
+        receiver)'s items into the streaming Eq. 3 buffer and the running
+        (min accuracy, lowest-src argmin) pair. ``ok`` masks items that are
+        not due; ``lengths`` counts each receiver's items, ``counts`` each
+        member's due ones. Returns the new (B, N, ...) ``acc_sum`` and the
+        (B, N) ``w_sum``, batch min and batch sender."""
+        bsz, n = s["w_sum"].shape
         count = rcv.shape[0]
-        accs = torch.where(ok, self._eval(s["sent"], src, rcv), 0.0)
-        w = torch.where(ok, s["rep"][rcv, src] * accs, 0.0)   # Eq. 2 per item
+        src_g = src + rcv // n * n
+        accs = torch.where(ok, self._eval(s["sent"], src, rcv, spans, counts),
+                           0.0)
+        w = torch.where(ok, s["rep"].reshape(bsz * n, n)[rcv, src] * accs, 0.0)
         # segment r = receiver r's running sum, then its items: each sum
         # runs carry + x0 + x1 + ... in item order, one rounding an
         # addition, as the JAX compact engine's scatter-add does.
@@ -357,156 +443,215 @@ class LaxSimulator:
         item_at = torch.arange(count, device=self.device) + rcv + 1
 
         def add(carry, items):
-            buf = torch.empty((n + count,) + carry.shape[1:], dtype=carry.dtype,
-                              device=self.device)
-            buf[carry_at] = carry
+            flat_carry = carry.reshape((bsz * n,) + carry.shape[2:])
+            buf = torch.empty((bsz * n + count,) + carry.shape[2:],
+                              dtype=carry.dtype, device=self.device)
+            buf[carry_at] = flat_carry
             buf[item_at] = items
-            flat = buf.reshape(n + count, -1)
-            return torch.segment_reduce(flat, "sum", lengths=seg,
-                                        axis=0).reshape(carry.shape)
+            return torch.segment_reduce(
+                buf.reshape(bsz * n + count, -1), "sum", lengths=seg,
+                axis=0).reshape(carry.shape)
 
-        acc_sum = tree.map(lambda a, m: add(a, _col(w, m) * m[src].float()),
-                           s["acc_sum"], s["sent"])
+        def weighted(m):
+            models = m.flatten(0, 1)[src_g].float()
+            return _col(w, models) * models
+
+        acc_sum = tree.map(lambda a, m: add(a, weighted(m)), s["acc_sum"],
+                           s["sent"])
         masked = torch.where(ok, accs, torch.inf)
-        batch_min = torch.full((n,), torch.inf, device=self.device).scatter_reduce(
+        batch_min = torch.full((bsz * n,), torch.inf,
+                               device=self.device).scatter_reduce(
             0, rcv, masked, "amin")
         # lowest-src tie-break: among the items at the receiver's min,
         # scatter-min the sender index (n = none)
         tie = ok & (masked == batch_min[rcv])
-        batch_sender = torch.full((n,), n, dtype=torch.int64,
+        batch_sender = torch.full((bsz * n,), n, dtype=torch.int64,
                                   device=self.device).scatter_reduce(
             0, rcv, torch.where(tie, src, n), "amin")
         batch_sender = torch.where(batch_sender == n, 0, batch_sender)
-        return (acc_sum, add(s["w_sum"], w), s["buf_cnt"] + due.sum(1),
-                batch_min, batch_sender)
+        return (acc_sum, add(s["w_sum"], w), batch_min.reshape(bsz, n),
+                batch_sender.reshape(bsz, n))
 
-    def _eval(self, sent, src, rcv):
-        """Accuracies of ``sent[src[k]]`` on receiver ``rcv[k]``'s eval data."""
-        models = tree.map(lambda x: x[src], sent)
-        data = tree.map(lambda x: x[rcv], self._eval_data)
-        return self.scenario.eval_stacked(models, data).to(torch.float32)
+    def _eval(self, sent, src, rcv, spans, counts):
+        """Accuracies of each item's model (member b's ``sent[b, src]``) on
+        its receiver's eval data: one stacked call a member with due items,
+        at its single run's shape; zeros for the items of a member with
+        none (masked out by the caller)."""
+        n = self.topology.num_nodes
+        out, lo = [], 0
+        for b, span in enumerate(spans):
+            hi = lo + span
+            if counts[b]:
+                models = tree.map(lambda x: x[b][src[lo:hi]], sent)
+                rows = rcv[lo:hi] - b * n if b else rcv[lo:hi]
+                data = tree.map(lambda x: x[rows], self._eval_data)
+                out.append(self.scenario.eval_stacked(models, data)
+                           .to(torch.float32))
+            elif span:
+                out.append(torch.zeros((span,), device=self.device))
+            lo = hi
+        return out[0] if len(out) == 1 else torch.cat(out)
 
     # -------------------------------------------------------------- training
-    def _train_and_send(self, params, sent, rows_np, t):
-        """Train nodes ``rows_np``, commit the honest ones' results, run
-        each training attacker's attack on its candidate, put the payloads
-        through the wire, and write them to ``sent`` (in place)."""
-        dev, seed = self.device, self.cfg.seed
+    def _train_and_send(self, params, sent, trains_np, t):
+        """Train the nodes of ``trains_np`` ((B, N) bool), one stacked call
+        a member; commit the honest ones' results, run each training
+        attacker's attack on its candidate, put every member's payloads
+        through the wire together, and write them to ``sent`` (in place).
+        Returns the flattened (B * N) rows that trained."""
+        dev, n = self.device, self.topology.num_nodes
+        rows_np = np.flatnonzero(trains_np)           # b * N + node, ascending
+        member_np = rows_np // n
         rows = torch.as_tensor(rows_np, device=dev)
-        committed = tree.map(lambda x: x[rows], params)
-        trained = self.scenario.train_stacked(
-            params, attacks_lib.stream_key_at(seed, t, _TRAIN_FOLD, dev),
-            self._train_data, rows)
+        local = rows % n
+        flat = tree.map(lambda x: x.flatten(0, 1), params)
+        committed = tree.map(lambda x: x[rows], flat)
+        bounds = np.searchsorted(member_np, np.arange(len(self._seeds) + 1))
+        parts = []
+        for b in np.unique(member_np).tolist():
+            parts.append(self.scenario.train_stacked(
+                tree.map(lambda x: x[b], params),
+                attacks_lib.stream_key_at(self._seeds[b], t, _TRAIN_FOLD, dev),
+                self._train_data, local[bounds[b]:bounds[b + 1]]))
+        trained = parts[0] if len(parts) == 1 else tree.map(
+            lambda *xs: torch.cat(xs), *parts)
         # attackers never COMMIT local training; their honestly trained
         # candidate is still handed to the attack
-        honest = np.flatnonzero(~self._malicious[rows_np])
+        honest = np.flatnonzero(~self._malicious.reshape(-1)[rows_np])
         if honest.size:
             pick = torch.as_tensor(honest, device=dev)
-            for p, tr in zip(tree.leaves(params), tree.leaves(trained)):
+            for p, tr in zip(tree.leaves(flat), tree.leaves(trained)):
                 p.index_copy_(0, rows[pick], tr[pick].to(p.dtype))
         outgoing = trained
-        for fold, attack, ids in self._attacks:
-            pos = np.flatnonzero(np.isin(rows_np, ids))
+        for attack, mask, folds in self._attacks:
+            pos = np.flatnonzero(mask.reshape(-1)[rows_np])
             if not pos.size:
                 continue
             bad = [attack.apply(
-                attacks_lib.attack_key_at(seed, t, fold, int(rows_np[j]), dev),
+                attacks_lib.attack_key_at(
+                    self._seeds[member_np[j]], t, int(folds[member_np[j]]),
+                    int(rows_np[j] % n), dev),
                 tree.map(lambda x, j=j: x[j], trained),
                 tree.map(lambda x, j=j: x[j], committed), t) for j in pos]
             at = torch.as_tensor(pos, device=dev)
             outgoing = tree.map(
-                lambda o, *b: o.index_copy(0, at, torch.stack(b).to(o.dtype)),
+                lambda o, *bd: o.index_copy(0, at, torch.stack(bd).to(o.dtype)),
                 outgoing, *bad)
         if self.cfg.compress == "int8":
-            # the sender quantizes its (post-attack) broadcast ONCE: one
-            # quantize and one dequantize launch for the stacked tree,
-            # bitwise the per-node round trips (blocks run along the last
-            # axis only)
+            # every sender quantizes its (post-attack) broadcast ONCE: one
+            # quantize and one dequantize launch for all members' stacked
+            # rows, bitwise the per-node round trips (blocks run along the
+            # last axis only)
             outgoing = compression.roundtrip_tree(outgoing)
-        for s, o in zip(tree.leaves(sent), tree.leaves(outgoing)):
-            s.index_copy_(0, rows, o)
+        for s_, o in zip(tree.leaves(sent), tree.leaves(outgoing)):
+            s_.flatten(0, 1).index_copy_(0, rows, o)
+        return rows
 
     # -------------------------------------------------------------------- run
-    def run(self, params0=None) -> SimLaxResult:
+    def run(self, params0=None):
         """params0: tree with leading N dim (default: the scenario's
-        stacked init), copied onto ``device``. Raises ``RuntimeError`` when
-        a tick's due deliveries exceed the compact engine's bound."""
+        stacked init), copied onto ``device`` (batched runs start every
+        member from it). Returns a ``SimLaxResult``, or for a
+        ``BatchedFederationSpec`` a list of B of them, member b bitwise the
+        single run of ``specs[b]`` at ``seeds[b]``. Raises ``RuntimeError``
+        when a tick's due deliveries exceed the compact engine's bound."""
         dev = self.device
         if params0 is None:
             params0 = self.scenario.init_params_stacked(dev)
-        params = tree.map(lambda x: torch.as_tensor(x).to(dev).clone(), params0)
-        deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
-            return self._run(params)
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
+        bsz = len(self._seeds)
+        params = tree.map(lambda x: torch.as_tensor(x).to(dev).expand(
+            (bsz,) + tuple(x.shape)).clone(), params0)
+        with device_lib.deterministic():
+            results = self._run(params)
+        return results if self._batched else results[0]
+
+    def _overflow(self, t, counts):
+        over = np.flatnonzero(counts > self.compact_budget)
+        if not self._batched:
+            raise RuntimeError(
+                f"compact delivery overflow: tick {t} had {int(counts[0])} due "
+                f"deliveries but the bound is {self.compact_budget} "
+                "(SimLaxConfig.compact_budget override; the exact "
+                "topology.compaction_budget bound for this "
+                "topology/ttl/interval cannot overflow)")
+        raise RuntimeError(
+            "compact delivery overflow in batched run: federation "
+            f"{[int(b) for b in over]} of the batch (size {self.batch_size}) "
+            f"had {[int(counts[b]) for b in over]} due deliveries on tick {t} "
+            f"but the shared work buffer holds {self.compact_budget} "
+            "(SimLaxConfig.compact_budget override below the batch's max "
+            "exact topology.compaction_budget bound)")
 
     def _run(self, params):
         cfg, rep_impl, c, dev = self.cfg, self.rep_impl, self._consts, self.device
         n = self.topology.num_nodes
+        bsz = len(self._seeds)
         compact = cfg.delivery == "compact"
-        items_of = {"dense": self._items_dense,
-                    "sparse": self._items_sparse}.get(cfg.delivery)
+        items_of = {"dense": self._items_dense, "sparse": self._items_sparse,
+                    "compact": self._items_compact}[cfg.delivery]
         s = {
             "sent": tree.map(torch.zeros_like, params),
-            "rep": torch.full((n, n), rep_impl.initial, device=dev),
+            "rep": torch.full((bsz, n, n), rep_impl.initial, device=dev),
             "acc_sum": tree.map(lambda x: torch.zeros(
                 x.shape, dtype=torch.float32, device=dev), params),
-            "w_sum": torch.zeros((n,), device=dev),
-            "buf_cnt": torch.zeros((n,), dtype=torch.int64, device=dev),
+            "w_sum": torch.zeros((bsz, n), device=dev),
+            "buf_cnt": torch.zeros((bsz, n), dtype=torch.int64, device=dev),
         }
         # compact keeps the in-flight state in (N, budget) receiver slots
         # plus a dropped row n for padding scatters; the oracles (N, N)
         arrive = torch.full(
-            (n + 1, self.delivery_budget) if compact else (n, n), _NEVER,
-            dtype=torch.int32, device=dev)
-        live = arrive[:n]
-        min_acc = torch.full((n,), torch.inf, device=dev)
-        min_sender = torch.zeros((n,), dtype=torch.int64, device=dev)
+            (bsz, n + 1, self.delivery_budget) if compact else (bsz, n, n),
+            _NEVER, dtype=torch.int32, device=dev)
+        live = arrive[:, :n]
+        min_acc = torch.full((bsz, n), torch.inf, device=dev)
+        min_sender = torch.zeros((bsz, n), dtype=torch.int64, device=dev)
         next_train = self._initial_countdown()
-        fedavg_rounds = torch.zeros((), dtype=torch.int64, device=dev)
-        broadcasts = np.zeros((n,), np.int64)
-        deliveries = max_due = 0
-        rows_n = torch.arange(n, device=dev)
+        fedavg_rounds = torch.zeros((bsz,), dtype=torch.int64, device=dev)
+        broadcasts = np.zeros((bsz, n), np.int64)
+        deliveries = np.zeros((bsz,), np.int64)
+        max_due = np.zeros((bsz,), np.int64)
         acc_rows = []
 
         for t in range(cfg.ticks):
             # ---- 0. membership: events apply at the TOP of the tick;
             # rejoiners get every peer's reputation COLUMN decayed
             if self._membership:
-                a_t = c["alive_t"][t]
-                if self._rejoin_np[t].any():
-                    decayed = torch.clamp(s["rep"] * c["rejoin_decay"],
-                                          rep_impl.floor, rep_impl.initial)
-                    s["rep"] = torch.where(c["rejoin_t"][t][None, :], decayed,
-                                           s["rep"])
+                a_t = c["alive_t"][:, t]
+                if self._rejoin_any[t]:
+                    decayed = torch.clamp(
+                        s["rep"] * c["rejoin_decay"][:, None, None],
+                        rep_impl.floor, rep_impl.initial)
+                    s["rep"] = torch.where(c["rejoin_t"][:, t][:, None, :],
+                                           decayed, s["rep"])
             else:
                 a_t = c["alive"]
 
             # ---- 1. deliveries due at t; an arrival at an offline
             # receiver expires without delivering
             expired = live == t
-            due = expired & a_t[:, None]
-            count = int(due.sum())                       # host sync 1 of 2
-            if count:
-                if compact and count > self.compact_budget:
-                    raise RuntimeError(
-                        f"compact delivery overflow: tick {t} had {count} due "
-                        f"deliveries but the bound is {self.compact_budget} "
-                        "(SimLaxConfig.compact_budget override; the exact "
-                        "topology.compaction_budget bound for this "
-                        "topology/ttl/interval cannot overflow)")
-                items = (self._items_compact(due, count) if compact
-                         else items_of(due))
-                s["acc_sum"], s["w_sum"], s["buf_cnt"], batch_min, batch_sender = \
-                    self._reduce(s, due, *items)
+            due = expired & a_t[:, :, None]
+            counts = due.sum((1, 2)).cpu().numpy()        # host sync 1 of 2
+            if counts.any():
+                if compact and counts.max() > self.compact_budget:
+                    self._overflow(t, counts)
+                acc_sum, w_sum, batch_min, batch_sender = self._reduce(
+                    s, counts, *items_of(due, counts))
+                if not counts.all():
+                    # a member with nothing due this tick keeps its buffer
+                    # untouched, as its single run does
+                    idle = torch.as_tensor(counts == 0, device=dev)
+                    acc_sum = tree.map(
+                        lambda new, old: torch.where(_col(idle, old), old, new),
+                        acc_sum, s["acc_sum"])
+                    w_sum = torch.where(idle[:, None], s["w_sum"], w_sum)
+                s["acc_sum"], s["w_sum"] = acc_sum, w_sum
+                s["buf_cnt"] = s["buf_cnt"] + due.sum(2)
                 better = batch_min < min_acc
                 min_acc = torch.where(better, batch_min, min_acc)
                 min_sender = torch.where(better, batch_sender, min_sender)
             live.masked_fill_(expired, _NEVER)
-            deliveries += count
-            max_due = max(max_due, count)
+            deliveries += counts
+            max_due = np.maximum(max_due, counts)
 
             # ---- 2. weighted FedAvg (Eq. 3) where the buffer filled up
             fire = s["buf_cnt"] >= rep_impl.buffer_size
@@ -522,60 +667,72 @@ class LaxSimulator:
             params = tree.map(leaf, s["acc_sum"], params)
             # punish the worst sender of each fired buffer (§IV-D1)
             hit = fire & (min_acc < torch.inf)
-            cur = s["rep"][rows_n, min_sender]
-            s["rep"][rows_n, min_sender] = torch.where(
+            worst = min_sender[:, :, None]
+            cur = s["rep"].gather(2, worst)[:, :, 0]
+            s["rep"].scatter_(2, worst, torch.where(
                 hit, torch.clamp(cur - rep_impl.penalty, rep_impl.floor,
-                                 rep_impl.initial), cur)
+                                 rep_impl.initial), cur)[:, :, None])
             keep = (~fire).to(torch.float32)
             s["acc_sum"] = tree.map(lambda a: a * _col(keep, a), s["acc_sum"])
             s["w_sum"] = s["w_sum"] * keep
             s["buf_cnt"] = torch.where(fire, 0, s["buf_cnt"])
             min_acc = torch.where(fire, torch.inf, min_acc)
             min_sender = torch.where(fire, 0, min_sender)
-            fedavg_rounds += apply.sum()
+            fedavg_rounds += apply.sum(1)
 
             # ---- 3. train + broadcast where the countdown expired;
             # offline nodes' countdowns freeze
-            next_train = next_train - (a_t.to(torch.int32)
-                                       if self._membership else 1)
+            if self._membership:
+                next_train = next_train - torch.where(
+                    c["churn"][:, None], a_t, True).to(torch.int32)
+            else:
+                next_train = next_train - 1
             trains = (next_train <= 0) & a_t
-            rows_np = np.flatnonzero(trains.cpu().numpy())   # host sync 2 of 2
-            if rows_np.size:
-                self._train_and_send(params, s["sent"], rows_np, t)
-                rows = torch.as_tensor(rows_np, device=dev)
+            trains_np = trains.cpu().numpy()              # host sync 2 of 2
+            if trains_np.any():
+                rows = self._train_and_send(params, s["sent"], trains_np, t)
                 if compact:
-                    arrive[c["inv_dst"][rows], c["inv_slot"][rows]] = \
-                        t + c["inv_delay"][rows]
+                    b, r = rows // n, rows % n
+                    arrive[b[:, None], c["inv_dst"][b, r], c["inv_slot"][b, r]] = \
+                        t + c["inv_delay"][b, r]
                 else:
-                    sched = trains[None, :] & c["reach"]
+                    sched = trains[:, None, :] & c["reach"]
                     live.copy_(torch.where(sched, t + c["delay"], live))
-                fresh = self._intervals(attacks_lib.stream_key_at(
-                    cfg.seed, t, _INTERVAL_FOLD, dev), n)[rows]
-                next_train[rows] = fresh * c["straggler"][rows]
-                broadcasts[rows_np] += 1
-            # the global test eval runs on record ticks only
+                fresh = self._fresh_intervals(
+                    t, np.flatnonzero(trains_np.any(axis=1)))
+                next_train = torch.where(trains, fresh * c["straggler"],
+                                         next_train)
+                broadcasts += trains_np
+            # the global test eval runs on record ticks only, one call a
+            # member
             if t % cfg.record_every == 0:
-                acc_rows.append(self.scenario.test_stacked(params).to(torch.float32))
+                acc_rows.append(torch.stack([
+                    self.scenario.test_stacked(tree.map(lambda x: x[b], params))
+                    .to(torch.float32) for b in range(bsz)]))
 
         final = dict(params=params, sent=s["sent"], rep=s["rep"],
                      arrive=live, w_sum=s["w_sum"], buf_cnt=s["buf_cnt"],
                      min_acc=min_acc, min_sender=min_sender,
-                     next_train=next_train)
-        counters = dict(broadcasts=broadcasts, deliveries=deliveries,
-                        max_due=max_due, fedavg_rounds=int(fedavg_rounds))
-        acc = (torch.stack(acc_rows).cpu().numpy() if acc_rows
-               else np.zeros((0, n), np.float32))
-        return self._package(final, counters, acc)
+                     next_train=next_train, fedavg_rounds=fedavg_rounds)
+        final = {k: tree.map(lambda x: x.cpu(), v) for k, v in final.items()}
+        acc = (torch.stack(acc_rows, 1).cpu().numpy() if acc_rows
+               else np.zeros((bsz, 0, n), np.float32))
+        return [self._package(b, tree.map(lambda x: x[b], final),
+                              dict(broadcasts=broadcasts[b],
+                                   deliveries=int(deliveries[b]),
+                                   max_due=int(max_due[b])), acc[b])
+                for b in range(bsz)]
 
-    def _package(self, final, counters, acc_history):
-        """Host-side result assembly: expand the compact slot state back to
-        the (N, N) oracle layout and fold the counters into the stats."""
+    def _package(self, b, final, counters, acc_history):
+        """Host-side result assembly for member ``b``: expand the compact
+        slot state back to the (N, N) oracle layout and fold the counters
+        into the stats."""
         cfg = self.cfg
         n = self.topology.num_nodes
-        final_arrive = final["arrive"].cpu().numpy()
+        final_arrive = final["arrive"].numpy()
         if cfg.delivery == "compact":
             dense = np.full((n, n), _NEVER, np.int32)
-            dense[np.arange(n)[:, None], self._slot_src_np] = final_arrive
+            dense[np.arange(n)[:, None], self._slot_src_np[b]] = final_arrive
             final_arrive = dense
         # one broadcast's bytes under the configured compression; each
         # delivery moves one copy
@@ -584,20 +741,23 @@ class LaxSimulator:
                                            device="meta"), final["sent"]),
             cfg.compress)
         deliveries = counters["deliveries"]
-        as_np = {k: final[k].cpu().numpy()
-                 for k in ("w_sum", "min_acc")}
-        as_np.update({k: final[k].cpu().numpy().astype(np.int32)
+        extra = {}
+        if self._batched:
+            extra = {"federation_index": b, "batch_size": self.batch_size,
+                     "seed": int(self._seeds[b])}
+        as_np = {k: final[k].numpy() for k in ("w_sum", "min_acc")}
+        as_np.update({k: final[k].numpy().astype(np.int32)
                       for k in ("buf_cnt", "min_sender", "next_train")})
         return SimLaxResult(
             params=convert.params_to_numpy(final["params"]),
-            reputation=final["rep"].cpu().numpy(),
+            reputation=final["rep"].numpy(),
             acc_history=acc_history,
             record_ticks=np.arange(0, cfg.ticks, cfg.record_every),
             stats={
                 "broadcasts": int(counters["broadcasts"].sum()),
                 "broadcasts_per_node": counters["broadcasts"].astype(np.int32),
                 "deliveries": deliveries,
-                "fedavg_rounds": counters["fedavg_rounds"],
+                "fedavg_rounds": int(final["fedavg_rounds"]),
                 "delivery": cfg.delivery,
                 "delivery_budget": self.delivery_budget,
                 "compact_budget": self.compact_budget,
@@ -605,6 +765,7 @@ class LaxSimulator:
                 "compress": cfg.compress,
                 "broadcast_bytes": broadcast_bytes,
                 "wire_bytes": broadcast_bytes * deliveries,
+                **extra,
             },
             final_state={"arrive": final_arrive, **as_np},
             sent=convert.params_to_numpy(final["sent"]),

@@ -6,6 +6,10 @@ scales ship as bfloat16 and are rounded through bf16 BEFORE q is computed,
 so the scale the receiver multiplies by is the one the sender divided by;
 the ``SCALE_EPS`` clamp keeps all-zero blocks exact.
 
+``quantize_tensor`` / ``dequantize_tensor`` are the flat-block forms (the
+tensor flattened, zero-padded to whole 256-element blocks); they go through
+the same kernel pair as a one-segment table.
+
 A tree's leaves go through ``repro_torch.kernels.quantize.ops`` together:
 one kernel launch quantizes the whole tree into the packed wire (int8 q,
 bf16 scales) and one dequantizes it, for CUDA tensors; the plain version,
@@ -24,6 +28,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree
 from repro_torch.kernels.quantize import ops as q_ops
@@ -33,6 +38,29 @@ BLOCK = 256  # quantization block (elements)
 
 # Zero-block guard, inside bf16's normal range (min normal ~1.2e-38).
 SCALE_EPS = 1e-12
+
+
+def quantize_tensor(x, block: int = BLOCK):
+    """x (any shape) -> (q int8 (nblocks, block), scales bf16 (nblocks,)):
+    the flattened tensor, zero-padded to whole blocks, one block a row.
+    Size-0 inputs produce 0 blocks: q (0, block), scales (0,)."""
+    flat = x.to(torch.float32).reshape(-1)
+    pad = -flat.numel() % block
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    # a (nblocks, block) leaf is one block a row under the last-axis scheme
+    q, scales = q_ops.quantize_tree([flat.reshape(-1, block)], block)[0]
+    return q.reshape(-1, block), scales.reshape(-1)
+
+
+def dequantize_tensor(q, scales, shape, dtype):
+    """The inverse of ``quantize_tensor``: the fp32 products ``q * scale``,
+    cut to ``shape`` and cast to ``dtype``."""
+    nblocks, block = q.shape
+    flat = q_ops.dequantize_tree([(q.reshape(nblocks, 1, block),
+                                   scales.reshape(nblocks, 1))],
+                                 [((nblocks, block), torch.float32)])[0]
+    return flat.reshape(-1)[:math.prod(shape)].reshape(shape).to(dtype)
 
 
 def _last_axis_blocking(shape, block: int = BLOCK):

@@ -2,6 +2,8 @@
 asks for the CPU, and never a silent fallback from one to the other."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch import tree
@@ -21,3 +23,16 @@ def resolve(device="cuda") -> torch.device:
 def of(params) -> torch.device:
     """The device a tensor (or the first leaf of a params tree) lives on."""
     return tree.leaves(params)[0].device
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Holds cuDNN to deterministic algorithms for the ``with`` body and
+    restores the caller's setting after it: both simulators run inside it,
+    so a seeded run gives the same bits on the card every time."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old

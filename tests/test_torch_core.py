@@ -131,6 +131,35 @@ def test_quantize_last_axis_bitwise(shape):
     np.testing.assert_array_equal(pd.numpy(), np.asarray(jd))
 
 
+@pytest.mark.parametrize("shape", [(0,), (3, 0), (), (5,), (256,), (257,),
+                                   (7, 33, 5), (784, 120)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_tensor_bitwise(shape, dtype):
+    """The flat-block forms: pad to whole 256-element blocks, bf16 wire
+    scales, size 0 gives 0 blocks; q, scales and the dequantized tensor in
+    fp32 and bf16 bitwise to the JAX package's."""
+    rng = np.random.RandomState(len(shape) * 17 + sum(shape))
+    x = (3.0 * rng.standard_normal(shape)).astype(np.float32)
+    if x.size > 300:
+        x.reshape(-1)[:256] = 0.0                          # an all-zero block
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    px = _t(x).to(getattr(torch, dtype))
+    jq, js = jax.jit(j_comp.quantize_tensor)(jx)
+    pq, ps = p_comp.quantize_tensor(px)
+    assert tuple(pq.shape) == jq.shape and tuple(ps.shape) == js.shape
+    assert pq.dtype == torch.int8 and ps.dtype == torch.bfloat16
+    np.testing.assert_array_equal(pq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ps.to(torch.float32).numpy(),
+                                  np.asarray(js, np.float32))
+    for out in ("float32", "bfloat16"):
+        jd = jax.jit(j_comp.dequantize_tensor, static_argnums=(2, 3))(
+            jq, js, shape, getattr(jnp, out))
+        pd = p_comp.dequantize_tensor(pq, ps, shape, getattr(torch, out))
+        assert tuple(pd.shape) == shape and pd.dtype == getattr(torch, out)
+        np.testing.assert_array_equal(pd.to(torch.float32).numpy(),
+                                      np.asarray(jd, np.float32))
+
+
 def test_roundtrip_tree_bitwise_on_lenet_tree():
     params = _lenet_like_tree(np.random.RandomState(3))
     want = jax.jit(j_comp.roundtrip_tree)(jax.tree.map(jnp.asarray, params))

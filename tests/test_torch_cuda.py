@@ -299,3 +299,116 @@ def test_lax_compact_wire_is_one_kernel_pair_a_training_tick(cuda):
         training_ticks += bool(trained)
     assert res.stats["broadcasts"] > training_ticks > 0
     assert LAUNCHES["quantize"] == LAUNCHES["dequantize"] == training_ticks
+
+
+def _hetero_toy_specs(n):
+    from repro_torch.chain import attacks
+    build = attacks.FederationSpec.build
+    return [build(n, malicious=(0,), attack="gaussian"),
+            build(n, malicious={2: "signflip", 5: "gaussian"}, stragglers={7: 2}),
+            build(n, malicious=(1, 3), attack="scaled", dead=(n - 1,)),
+            build(n),
+            build(n, malicious=(0, 2), attack="intermittent",
+                  initial_countdown=[1 + (3 * i) % 7 for i in range(n)])]
+
+
+@pytest.mark.parametrize("engine", ["compact", "sparse", "dense"])
+def test_batched_members_are_their_single_runs_on_the_card(cuda, engine):
+    """A batch of heterogeneous toy federations on the card: every member
+    bitwise its single card run; the int8 wire is one quantize and one
+    dequantize launch a training tick for the whole batch."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.chain import attacks, scenarios, simlax
+    from repro_torch.core import topology
+    from repro_torch.core.reputation import IMPL2
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    n = 16
+    specs, seeds = _hetero_toy_specs(n), [1, 4, 7, 10, 13]
+    sc, topo = scenarios.toy_scenario(n, dim=8), topology.kregular(n, 2)
+    cfg = simlax.SimLaxConfig(ticks=40, train_interval=(8, 12), latency=2, ttl=2,
+                              record_every=10, delivery=engine, compress="int8")
+    reset_launches()
+    batch = simlax.LaxSimulator(sc, topo, attacks.BatchedFederationSpec.build(
+        specs, seeds), IMPL2, cfg, device="cuda").run()
+    torch.cuda.synchronize()
+    wire = (LAUNCHES["quantize"], LAUNCHES["dequantize"])
+    singles = []
+    for b, (spec, seed) in enumerate(zip(specs, seeds)):
+        reset_launches()
+        single = simlax.LaxSimulator(sc, topo, spec, IMPL2,
+                                     dataclasses.replace(cfg, seed=seed),
+                                     device="cuda").run()
+        torch.cuda.synchronize()
+        singles.append(LAUNCHES["quantize"])
+        for x, y in zip(tree.leaves(batch[b].params) + tree.leaves(batch[b].sent),
+                        tree.leaves(single.params) + tree.leaves(single.sent)):
+            assert np.array_equal(x, y), (engine, b)
+        assert np.array_equal(batch[b].reputation, single.reputation)
+        assert np.array_equal(batch[b].acc_history, single.acc_history)
+        for k in ("arrive", "w_sum", "buf_cnt", "min_sender", "next_train"):
+            assert np.array_equal(batch[b].final_state[k], single.final_state[k]), k
+        assert batch[b].stats["deliveries"] == single.stats["deliveries"]
+    # one round trip a tick on which any member trains: at least the
+    # busiest member's training ticks, fewer than all members' together
+    assert wire[0] == wire[1]
+    assert max(singles) <= wire[0] < sum(singles)
+
+
+def test_lenet_sgd_graph_route_is_the_eager_route(cuda):
+    """Small stacked SGD calls replay a captured CUDA graph on the card:
+    the same bits as the eager route, at 1, 2 and GRAPH_MODELS models."""
+    from repro_torch import device as device_lib
+    from repro_torch import tree
+    from repro_torch.chain import scenarios
+    sc = scenarios.lenet_scenario(6, pool=32, eval_size=8, test_size=16,
+                                  train_steps=2, batch=8)
+    params, data = sc.init_params_stacked("cuda"), sc.train_data("cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    with device_lib.deterministic():
+        for m in (1, 2, 6):
+            rows = torch.arange(m, device="cuda")
+            idx = torch.randint(0, 32, (m, 2, 8), generator=g, device="cuda")
+            models = tree.map(lambda x: x[rows], params)
+            graphed = sc.sgd_stacked(models, data, rows, idx)
+            again = sc.sgd_stacked(models, data, rows, idx)     # a replay
+            eager = sc._sgd_steps(models, lambda s: {
+                "images": data["images"][rows[:, None], idx[:, s]],
+                "labels": data["labels"][rows[:, None], idx[:, s]]}, 2)
+            for a, b, c in zip(tree.leaves(graphed), tree.leaves(again),
+                               tree.leaves(eager)):
+                assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+                assert torch.equal(b.view(torch.int32), c.view(torch.int32))
+    assert len(sc._graphs) == 3
+
+
+@pytest.mark.parametrize("shape", [(0,), (5,), (257,), (784, 120)])
+def test_quantize_tensor_on_the_card_is_the_plain_version(cuda, shape):
+    """The flat-block forms through the kernel pair (a one-segment table):
+    q, scales and the dequantized tensor bitwise the CPU plain version's;
+    one launch each way."""
+    from repro_torch.core import compression
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(5)) * 3.0
+    q_c, s_c = compression.quantize_tensor(x)
+    reset_launches()
+    q_g, s_g = compression.quantize_tensor(x.cuda())
+    out = compression.dequantize_tensor(q_g, s_g, shape, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(q_g.cpu(), q_c) and torch.equal(s_g.cpu(), s_c)
+    assert torch.equal(out.cpu(), compression.dequantize_tensor(
+        q_c, s_c, shape, torch.float32))
+    rows = q_c.shape[0]
+    assert LAUNCHES["quantize"] == LAUNCHES["dequantize"] == (1 if rows else 0)
+
+
+def test_run_sweep_defaults_to_the_card(cuda):
+    from repro_torch.chain import simlax, sweeps
+    cells = sweeps.expand_grid(sizes=[8], attacks=[None, "gaussian"], seeds=[0, 1])
+    out = sweeps.run_sweep(cells, cfg=simlax.SimLaxConfig(
+        ticks=12, train_interval=(4, 4), ttl=1, record_every=4), target_acc=0.3)
+    assert [o.stats["batch_size"] for o in out] == [4] * 4
+    assert sweeps.frontier_tables(out, target_acc=0.3)["time_to_accuracy"]

@@ -363,15 +363,17 @@ def test_zero_delivery_ticks_and_all_dead():
 
 @pytest.mark.parametrize("what", ["sharded", "batched"])
 def test_unported_paths_raise(what):
+    """The sharded engine is not ported (item 12); a batch on it is refused
+    with the JAX package's ValueError (batches run on the other engines)."""
     sc = p_scenarios.toy_scenario(4)
     spec = p_attacks.FederationSpec.build(4)
-    cfg = p_simlax.SimLaxConfig(ticks=2)
+    cfg = dataclasses.replace(p_simlax.SimLaxConfig(ticks=2), delivery="sharded")
     if what == "sharded":
-        cfg, item = dataclasses.replace(cfg, delivery="sharded"), "item 12"
+        error, match = NotImplementedError, "item 12"
     else:
         spec = p_attacks.BatchedFederationSpec.build([spec, spec])
-        item = "item 10"
-    with pytest.raises(NotImplementedError, match=item):
+        error, match = ValueError, "BatchedFederationSpec"
+    with pytest.raises(error, match=match):
         p_simlax.LaxSimulator(sc, p_topology.full(4), spec, P_IMPL2, cfg,
                               device="cpu")
 

@@ -18,7 +18,7 @@ from repro_torch.core import topology as p_topology              # noqa: E402
 from repro_torch.core.reputation import IMPL2 as P_IMPL2         # noqa: E402
 
 
-def _heap_and_lax(attack, *, compress, rep=P_IMPL2, n=6, ticks=40,
+def _heap_and_lax(attack, *, compress, rep=P_IMPL2, n=8, ticks=60,
                   interval=8, malicious=(0, 3), countdown=None):
     sc = p_scenarios.toy_scenario(n, malicious=malicious)
     spec = p_attacks.FederationSpec.build(
@@ -56,9 +56,9 @@ def test_heap_lax_aggregate_parity_int8():
     """tests/test_simlax.py:842 on the port: FedAvg on, int8 wire; event
     streams identical, aggregate accuracy / reputation within the JAX
     test's tolerances, the attacker isolated."""
-    n, interval = 10, 12
+    n, interval = 12, 12
     heap, res = _heap_and_lax(
-        "gaussian", compress="int8", n=n, ticks=120, interval=interval,
+        "gaussian", compress="int8", n=n, ticks=160, interval=interval,
         malicious=(0,), countdown=[3 + (7 * i) % interval for i in range(n)])
     nodes = list(heap.nodes.values())
     honest = nodes[1:]
