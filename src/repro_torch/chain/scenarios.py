@@ -15,8 +15,10 @@ the same seed) and satisfies one uniform signature set:
 and their stacked counterparts, which the vectorized engine
 (``repro_torch.chain.simlax``) calls on M models at once:
 
-    train_stacked(params, generator, data, rows) -> params (M, ...): the
-        training actions of nodes ``rows`` from the (N, ...) params/data
+    train_stacked(params, generator, data, rows, ids=None) -> params
+        (M, ...): the training actions of rows ``rows`` of the params/data;
+        ``ids`` are those rows' node ids when params/data hold a block of
+        the federation (the sharded engine), else ``rows``
     eval_stacked(models, eval_data)     -> (M,) accuracies, model m on
                                            eval data row m
     test_stacked(params)                -> (N,) test accuracies
@@ -24,7 +26,8 @@ and their stacked counterparts, which the vectorized engine
 train/eval/test run on the device their params live on. ``train_fn`` draws
 its batch indices from the ``torch.Generator`` it is handed (the node's
 own); ``train_stacked`` draws all N nodes' indices from the one generator
-and keeps the rows', so a node's draw does not depend on who else trains. Initial params come from a generator seeded with the scenario's seed,
+and keeps those of the nodes it trains, so a node's draw depends neither on
+who else trains nor on which block of the federation a process holds. Initial params come from a generator seeded with the scenario's seed,
 so they differ from the JAX package's draws; tests carry the JAX params
 across with ``repro_torch.convert``.
 
@@ -76,7 +79,7 @@ class Scenario(Protocol):
 
     def test_fn(self, params): ...
 
-    def train_stacked(self, params, generator, data, rows): ...
+    def train_stacked(self, params, generator, data, rows, ids=None): ...
 
     def eval_stacked(self, models, eval_data): ...
 
@@ -254,8 +257,8 @@ class ToyScenario:
         return self.eval_fn(
             params, self._cache.get("target", self.target, params["w"].device))
 
-    def train_stacked(self, params, generator, data, rows):
-        del generator, data
+    def train_stacked(self, params, generator, data, rows, ids=None):
+        del generator, data, ids
         return {"w": self._step(params["w"][rows])}
 
     def eval_stacked(self, models, refs):
@@ -348,18 +351,21 @@ class LeNetScenario:
                     p, [a - self.lr * g for a, g in zip(leaves, grads)])
         return p
 
-    def train_stacked(self, params, generator, data, rows):
-        """The training actions of nodes ``rows`` at once: the (N,
-        train_steps, batch) pool indices come from ``generator`` and each
-        row keeps its own."""
+    def train_stacked(self, params, generator, data, rows, ids=None):
+        """The training actions of rows ``rows`` of params/data at once:
+        the (N, train_steps, batch) pool indices of all N nodes come from
+        ``generator`` and row k keeps node ``ids[k]``'s (default: ``rows``,
+        when params/data hold the whole federation)."""
         models = tree.map(lambda x: x[rows], params)
         if self.train_steps == 0:
             return models
-        n, pool = data["labels"].shape
-        idx = torch.randint(0, pool, (n, self.train_steps, self.batch),
+        pool = data["labels"].shape[1]
+        idx = torch.randint(0, pool, (self.num_nodes, self.train_steps,
+                                      self.batch),
                             generator=generator, device=generator.device)
+        ids = rows if ids is None else ids
         return self.sgd_stacked(models, data, rows,
-                                idx.to(data["labels"].device)[rows])
+                                idx.to(data["labels"].device)[ids])
 
     def sgd_stacked(self, models, data, rows, idx):
         """M models' SGD steps at once: model m trains on pool ``rows[m]``,

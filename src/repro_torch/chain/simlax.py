@@ -41,13 +41,36 @@ Receipt evaluation has three interchangeable engines
 ``dense``
     Evaluates all N² (dst, src) pairs, masked by dueness: the oracle.
 
-``sharded`` (ROADMAP queue 1 item 12) is not ported and raises
-``NotImplementedError``.
+``sharded``
+    The compact engine's receivers partitioned over the S ranks of a
+    process group (``SimLaxConfig.shards``; start the ranks with
+    ``repro_torch.launch.mesh.spawn`` and build the simulator on each).
+    Rank p holds receiver rows ``[p * m, (p + 1) * m)``, m = N / S: their
+    params, in-flight ``sent`` models, arrival slots, reputation rows and
+    data. The ``sent`` blocks a rank's receivers need cross between ranks
+    through ``core.gossip.tree_ppermute``, one exchange per occupied shard
+    offset (the production gossip round's transport), after every tick on
+    which a node trained: that set (the full-N ``trains`` vector) is the
+    same on every rank, so every rank issues the same exchanges. The
+    countdown and interval draws, the train indices (drawn for all N nodes
+    and kept per node) and each attacker's generator (keyed by its global
+    id) are computed for the whole federation on every rank, which keeps
+    the ranks in step with no other collective. Arrivals are scheduled
+    receiver-side (slot k of a receiver waits on its k-th in-ball sender).
+    Each rank's work buffer is bounded by ``topology.compaction_budget`` on
+    its own receivers (``compact_budget`` overrides it a shard); a run
+    whose shard went over raises ``RuntimeError`` at its end. ``run()``
+    gathers the blocks, so every rank returns the full result. ``shards=
+    None`` takes the group's size, 1 with no process group (no exchange,
+    in process). Bitwise ``compact`` wherever the scenario's stacked calls
+    give a model the same bits whatever the number of models a call (the
+    toy at every S; LeNet at S = 1).
 
-Batched runs: constructed from a ``BatchedFederationSpec`` (B same-N role
-sheets, one seed each; one shared scenario, topology and config), the
-engine runs the B federations together and ``run()`` returns a list of B
-``SimLaxResult``s. A single run is the batch of one. Every state tensor and
+Batched runs (compact, sparse and dense engines): constructed from a
+``BatchedFederationSpec`` (B same-N role sheets, one seed each; one shared
+scenario, topology and config), the engine runs the B federations
+together and ``run()`` returns a list of B ``SimLaxResult``s. A single run
+is the batch of one. Every state tensor and
 per-member constant carries a leading batch axis; the slot width and the
 compaction bound take the max over the members
 (``topology.batch_budgets``). Member b is bitwise the single run of
@@ -110,14 +133,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import convert
 from repro_torch import device as device_lib
 from repro_torch import tree
 from repro_torch.chain import attacks as attacks_lib
 from repro_torch.chain.attacks import BatchedFederationSpec
-from repro_torch.core import compression
+from repro_torch.core import compression, gossip
 from repro_torch.core import topology as topology_lib
+from repro_torch.launch import mesh as mesh_lib
 
 _NEVER = np.iinfo(np.int32).max
 _EPS = 1e-12
@@ -136,7 +161,7 @@ class SimLaxConfig:
     record_every: int = 10
     seed: int = 0
     delivery: str = "compact"         # receipt engine: see DELIVERY_ENGINES
-    shards: Optional[int] = None      # sharded engine: device count
+    shards: Optional[int] = None      # sharded engine: rank count
     compact_budget: Optional[int] = None
     # ^ overrides the compact engine's bound on one tick's due deliveries
     #   (default: the exact topology.compaction_budget); a tick above it
@@ -190,6 +215,9 @@ class LaxSimulator:
       results;
     * ``device`` — where the state and the work live; ``"cuda"`` raises
       without a CUDA device.
+
+    ``delivery="sharded"`` takes its shards from the default process group
+    (``launch.mesh.fed_group()``), or runs in process when none is up.
     """
 
     def __init__(self, scenario, topology: topology_lib.Topology, spec,
@@ -224,10 +252,6 @@ class LaxSimulator:
                 "delivery='sharded' does not compose with "
                 "BatchedFederationSpec: run sharded federations one at a "
                 "time, or batch with the compact engine")
-        if cfg.delivery == "sharded":
-            raise NotImplementedError(
-                "delivery='sharded' is not ported yet: ROADMAP queue 1 "
-                "item 12")
         if cfg.train_interval[0] < cfg.ttl * cfg.latency:
             warnings.warn(
                 f"min train interval ({cfg.train_interval[0]}) < ttl * "
@@ -281,7 +305,12 @@ class LaxSimulator:
 
         self._consts = {"alive": on_dev(alives),
                         "slot_src": on_dev(slot_srcs, torch.int64)}
-        if cfg.delivery == "compact":
+        self._block = (0, n)       # this process's receivers: [lo, lo + m)
+        self.shards = self.shard_budget = None
+        if cfg.delivery == "sharded":
+            self._shard_layout(reaches[0], delays[0], dists[0],
+                               alives[0], slot_srcs[0])
+        elif cfg.delivery == "compact":
             # the inverse slot map: for each sender, the (dst, slot, delay)
             # triples it lands in; padding rows point at the dropped row n
             inv_dsts, inv_slots, inv_delays = [], [], []
@@ -339,8 +368,77 @@ class LaxSimulator:
                 rejoin_t=on_dev(rejoin_ts), rejoin_decay=on_dev(decays),
                 churn=on_dev([s.membership is not None for s in specs]))
 
-        self._eval_data = scenario.eval_data(dev)
-        self._train_data = scenario.train_data(dev)
+        lo, m = self._block
+
+        def block(data):      # this process's rows of a scenario's data
+            if data is None or m == n:
+                return data
+            return tree.map(lambda x: x[lo:lo + m].clone(), data)
+
+        self._eval_data = block(scenario.eval_data(dev))
+        self._train_data = block(scenario.train_data(dev))
+
+    def _shard_layout(self, reach, delay, dist_, alive, slot_src):
+        """delivery="sharded": this rank's receiver block, its work-buffer
+        bound, the exchange's shard offsets and the receiver-side arrival
+        tables (the JAX engine's layout, from its single member)."""
+        cfg, n, dev = self.cfg, self.topology.num_nodes, self.device
+        group = mesh_lib.fed_group()
+        ranks = 1 if group is None else dist.get_world_size(group)
+        shards = ranks if cfg.shards is None else int(cfg.shards)
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if n % shards:
+            raise ValueError(
+                f"delivery='sharded' needs num_nodes ({n}) divisible by "
+                f"shards ({shards})")
+        if shards > ranks:
+            raise ValueError(
+                f"shards={shards} but the fed process group has {ranks} "
+                "rank(s): start one process a shard with "
+                "repro_torch.launch.mesh.spawn and build the simulator on "
+                "every rank")
+        if 1 < shards < ranks:
+            raise ValueError(
+                f"shards={shards} needs a fed process group of {shards} "
+                f"ranks, this one has {ranks}")
+        m = n // shards
+        p = dist.get_rank(group) if shards > 1 else 0
+        lo = p * m
+        # each shard compacts only the deliveries landing on its receivers
+        adj = self.topology.adj & alive[None, :] & alive[:, None]
+        per_shard = [topology_lib.compaction_budget(
+            adj, cfg.ttl, cfg.train_interval, latency=cfg.latency, dist=dist_,
+            receivers=np.arange(q * m, (q + 1) * m)) for q in range(shards)]
+        want = (max(1, max(per_shard)) if cfg.compact_budget is None
+                else int(cfg.compact_budget))
+        self.shard_budget = min(want, m * self.delivery_budget)
+        # shard p needs shard q's sent block iff some in-ball pair crosses
+        # q -> p; offset d = (p - q) mod S: one exchange an occupied offset.
+        # The pool is this rank's block, then one m-row block an offset;
+        # row_of_src maps a global sender to its pool row (senders in no
+        # exchanged block map to the last row, and are never due here)
+        blk = np.arange(n) // m
+        pairs = np.argwhere(reach)
+        offsets = sorted(set(((blk[pairs[:, 0]] - blk[pairs[:, 1]]) % shards)
+                             .tolist()) - {0})
+        self._exchange_perms = [[(q, (q + d) % shards) for q in range(shards)]
+                                for d in offsets]
+        row_of_src = np.full((n,), (1 + len(offsets)) * m - 1, np.int64)
+        row_of_src[lo:lo + m] = np.arange(m)
+        for j, d in enumerate(offsets):
+            q = (p - d) % shards
+            row_of_src[q * m:(q + 1) * m] = (1 + j) * m + np.arange(m)
+        rows = slice(lo, lo + m)
+        self._consts.update(
+            slot_src=torch.as_tensor(slot_src[rows][None], dtype=torch.int64,
+                                     device=dev),
+            slot_delay=torch.as_tensor(np.take_along_axis(
+                delay, slot_src, axis=1)[rows][None], device=dev),
+            slot_valid=torch.as_tensor(np.take_along_axis(
+                reach, slot_src, axis=1)[rows][None], device=dev),
+            row_of_src=torch.as_tensor(row_of_src, device=dev))
+        self.shards, self._group, self._block = shards, group, (lo, m)
 
     # ------------------------------------------------------------- pieces
     def _intervals(self, generator, count):
@@ -382,10 +480,10 @@ class LaxSimulator:
     # evaluate: dense all N² pairs, sparse all N * budget ball slots,
     # compact the tick's due slots. Items come grouped by (member,
     # receiver), in ascending sender order; receivers are numbered over the
-    # flattened (B * N) batch and senders within their member. ``_reduce``
-    # folds them back the same way for all three, so the engines agree bit
-    # for bit. Each returns (rcv, src, ok, lengths, spans): ``spans[b]``
-    # counts member b's items.
+    # flattened (B * N) batch (the sharded engine: this rank's m receivers)
+    # and senders within their member. ``_reduce`` folds them back the same
+    # way for all of them, so the engines agree bit for bit. Each returns
+    # (rcv, src, ok, lengths, spans): ``spans[b]`` counts member b's items.
     def _items_dense(self, due, counts):
         bsz, n, _ = due.shape
         ar = torch.arange(bsz * n, device=self.device)
@@ -419,20 +517,20 @@ class LaxSimulator:
         return (flat_idx // budget, src, torch.ones_like(src, dtype=torch.bool),
                 due.sum(2).reshape(-1), counts.tolist())
 
-    def _reduce(self, s, counts, rcv, src, ok, lengths, spans):
-        """Evaluate each item (sender ``src``'s in-flight model on receiver
-        ``rcv``'s data), weight it by Eq. 2, and fold each (member,
-        receiver)'s items into the streaming Eq. 3 buffer and the running
-        (min accuracy, lowest-src argmin) pair. ``ok`` masks items that are
-        not due; ``lengths`` counts each receiver's items, ``counts`` each
-        member's due ones. Returns the new (B, N, ...) ``acc_sum`` and the
-        (B, N) ``w_sum``, batch min and batch sender."""
-        bsz, n = s["w_sum"].shape
+    def _reduce(self, s, counts, pool, row, rcv, src, ok, lengths, spans):
+        """Evaluate each item (sender ``src``'s in-flight model, row
+        ``row`` of the ``pool`` of sent models, on receiver ``rcv``'s data),
+        weight it by Eq. 2, and fold each (member, receiver)'s items into
+        the streaming Eq. 3 buffer and the running (min accuracy, lowest-src
+        argmin) pair. ``ok`` masks items that are not due; ``lengths``
+        counts each receiver's items, ``counts`` each member's due ones.
+        Returns the new (B, M, ...) ``acc_sum`` and the (B, M) ``w_sum``,
+        batch min and batch sender, M the receivers this process holds."""
+        bsz, m = s["w_sum"].shape
+        n = self.topology.num_nodes
         count = rcv.shape[0]
-        src_g = src + rcv // n * n
-        accs = torch.where(ok, self._eval(s["sent"], src, rcv, spans, counts),
-                           0.0)
-        w = torch.where(ok, s["rep"].reshape(bsz * n, n)[rcv, src] * accs, 0.0)
+        accs = torch.where(ok, self._eval(pool, row, rcv, spans, counts), 0.0)
+        w = torch.where(ok, s["rep"].flatten(0, 1)[rcv, src] * accs, 0.0)
         # segment r = receiver r's running sum, then its items: each sum
         # runs carry + x0 + x1 + ... in item order, one rounding an
         # addition, as the JAX compact engine's scatter-add does.
@@ -443,47 +541,47 @@ class LaxSimulator:
         item_at = torch.arange(count, device=self.device) + rcv + 1
 
         def add(carry, items):
-            flat_carry = carry.reshape((bsz * n,) + carry.shape[2:])
-            buf = torch.empty((bsz * n + count,) + carry.shape[2:],
+            flat_carry = carry.flatten(0, 1)
+            buf = torch.empty((bsz * m + count,) + carry.shape[2:],
                               dtype=carry.dtype, device=self.device)
             buf[carry_at] = flat_carry
             buf[item_at] = items
             return torch.segment_reduce(
-                buf.reshape(bsz * n + count, -1), "sum", lengths=seg,
+                buf.reshape(bsz * m + count, -1), "sum", lengths=seg,
                 axis=0).reshape(carry.shape)
 
-        def weighted(m):
-            models = m.flatten(0, 1)[src_g].float()
+        def weighted(p):
+            models = p[row].float()
             return _col(w, models) * models
 
-        acc_sum = tree.map(lambda a, m: add(a, weighted(m)), s["acc_sum"],
-                           s["sent"])
+        acc_sum = tree.map(lambda a, p: add(a, weighted(p)), s["acc_sum"],
+                           pool)
         masked = torch.where(ok, accs, torch.inf)
-        batch_min = torch.full((bsz * n,), torch.inf,
+        batch_min = torch.full((bsz * m,), torch.inf,
                                device=self.device).scatter_reduce(
             0, rcv, masked, "amin")
         # lowest-src tie-break: among the items at the receiver's min,
         # scatter-min the sender index (n = none)
         tie = ok & (masked == batch_min[rcv])
-        batch_sender = torch.full((bsz * n,), n, dtype=torch.int64,
+        batch_sender = torch.full((bsz * m,), n, dtype=torch.int64,
                                   device=self.device).scatter_reduce(
             0, rcv, torch.where(tie, src, n), "amin")
         batch_sender = torch.where(batch_sender == n, 0, batch_sender)
-        return (acc_sum, add(s["w_sum"], w), batch_min.reshape(bsz, n),
-                batch_sender.reshape(bsz, n))
+        return (acc_sum, add(s["w_sum"], w), batch_min.reshape(bsz, m),
+                batch_sender.reshape(bsz, m))
 
-    def _eval(self, sent, src, rcv, spans, counts):
-        """Accuracies of each item's model (member b's ``sent[b, src]``) on
-        its receiver's eval data: one stacked call a member with due items,
-        at its single run's shape; zeros for the items of a member with
-        none (masked out by the caller)."""
-        n = self.topology.num_nodes
+    def _eval(self, pool, row, rcv, spans, counts):
+        """Accuracies of each item's model (``pool[row]``) on its
+        receiver's eval data: one stacked call a member with due items, at
+        its single run's shape; zeros for the items of a member with none
+        (masked out by the caller)."""
+        m = self._block[1]
         out, lo = [], 0
         for b, span in enumerate(spans):
             hi = lo + span
             if counts[b]:
-                models = tree.map(lambda x: x[b][src[lo:hi]], sent)
-                rows = rcv[lo:hi] - b * n if b else rcv[lo:hi]
+                models = tree.map(lambda x: x[row[lo:hi]], pool)
+                rows = rcv[lo:hi] - b * m if b else rcv[lo:hi]
                 data = tree.map(lambda x: x[rows], self._eval_data)
                 out.append(self.scenario.eval_stacked(models, data)
                            .to(torch.float32))
@@ -494,43 +592,49 @@ class LaxSimulator:
 
     # -------------------------------------------------------------- training
     def _train_and_send(self, params, sent, trains_np, t):
-        """Train the nodes of ``trains_np`` ((B, N) bool), one stacked call
-        a member; commit the honest ones' results, run each training
-        attacker's attack on its candidate, put every member's payloads
-        through the wire together, and write them to ``sent`` (in place).
-        Returns the flattened (B * N) rows that trained."""
-        dev, n = self.device, self.topology.num_nodes
-        rows_np = np.flatnonzero(trains_np)           # b * N + node, ascending
-        member_np = rows_np // n
+        """Train the nodes of ``trains_np`` ((B, M) bool over this
+        process's receivers), one stacked call a member; commit the honest
+        ones' results, run each training attacker's attack on its
+        candidate, put every member's payloads through the wire together,
+        and write them to ``sent`` (in place). Returns the flattened (B * M)
+        rows that trained."""
+        dev = self.device
+        lo, m = self._block
+        rows_np = np.flatnonzero(trains_np)           # b * M + row, ascending
+        member_np = rows_np // m
         rows = torch.as_tensor(rows_np, device=dev)
-        local = rows % n
+        if not rows_np.size:       # a shard whose nodes do not train
+            return rows
+        local = rows % m
         flat = tree.map(lambda x: x.flatten(0, 1), params)
         committed = tree.map(lambda x: x[rows], flat)
         bounds = np.searchsorted(member_np, np.arange(len(self._seeds) + 1))
         parts = []
         for b in np.unique(member_np).tolist():
+            sel = local[bounds[b]:bounds[b + 1]]
             parts.append(self.scenario.train_stacked(
                 tree.map(lambda x: x[b], params),
                 attacks_lib.stream_key_at(self._seeds[b], t, _TRAIN_FOLD, dev),
-                self._train_data, local[bounds[b]:bounds[b + 1]]))
+                self._train_data, sel, ids=sel + lo))
         trained = parts[0] if len(parts) == 1 else tree.map(
             lambda *xs: torch.cat(xs), *parts)
         # attackers never COMMIT local training; their honestly trained
         # candidate is still handed to the attack
-        honest = np.flatnonzero(~self._malicious.reshape(-1)[rows_np])
+        honest = np.flatnonzero(
+            ~self._malicious[:, lo:lo + m].reshape(-1)[rows_np])
         if honest.size:
             pick = torch.as_tensor(honest, device=dev)
             for p, tr in zip(tree.leaves(flat), tree.leaves(trained)):
                 p.index_copy_(0, rows[pick], tr[pick].to(p.dtype))
         outgoing = trained
         for attack, mask, folds in self._attacks:
-            pos = np.flatnonzero(mask.reshape(-1)[rows_np])
+            pos = np.flatnonzero(mask[:, lo:lo + m].reshape(-1)[rows_np])
             if not pos.size:
                 continue
             bad = [attack.apply(
                 attacks_lib.attack_key_at(
                     self._seeds[member_np[j]], t, int(folds[member_np[j]]),
-                    int(rows_np[j] % n), dev),
+                    int(rows_np[j] % m) + lo, dev),
                 tree.map(lambda x, j=j: x[j], trained),
                 tree.map(lambda x, j=j: x[j], committed), t) for j in pos]
             at = torch.as_tensor(pos, device=dev)
@@ -554,13 +658,18 @@ class LaxSimulator:
         member from it). Returns a ``SimLaxResult``, or for a
         ``BatchedFederationSpec`` a list of B of them, member b bitwise the
         single run of ``specs[b]`` at ``seeds[b]``. Raises ``RuntimeError``
-        when a tick's due deliveries exceed the compact engine's bound."""
+        when a tick's due deliveries exceed the compact engine's bound (the
+        sharded engine: a shard's bound, at the end of the run). A sharded
+        run is collective: every rank of the group calls it, and each
+        returns the whole federation's result."""
         dev = self.device
         if params0 is None:
             params0 = self.scenario.init_params_stacked(dev)
         bsz = len(self._seeds)
-        params = tree.map(lambda x: torch.as_tensor(x).to(dev).expand(
-            (bsz,) + tuple(x.shape)).clone(), params0)
+        lo, m = self._block
+        params = tree.map(lambda x: torch.as_tensor(x)[lo:lo + m].to(dev)
+                          .expand((bsz, m) + tuple(x.shape[1:])).clone(),
+                          params0)
         with device_lib.deterministic():
             results = self._run(params)
         return results if self._batched else results[0]
@@ -585,32 +694,42 @@ class LaxSimulator:
     def _run(self, params):
         cfg, rep_impl, c, dev = self.cfg, self.rep_impl, self._consts, self.device
         n = self.topology.num_nodes
+        lo, m = self._block
         bsz = len(self._seeds)
         compact = cfg.delivery == "compact"
+        sharded = cfg.delivery == "sharded"
         items_of = {"dense": self._items_dense, "sparse": self._items_sparse,
-                    "compact": self._items_compact}[cfg.delivery]
+                    "compact": self._items_compact,
+                    "sharded": self._items_compact}[cfg.delivery]
         s = {
             "sent": tree.map(torch.zeros_like, params),
-            "rep": torch.full((bsz, n, n), rep_impl.initial, device=dev),
+            "rep": torch.full((bsz, m, n), rep_impl.initial, device=dev),
             "acc_sum": tree.map(lambda x: torch.zeros(
                 x.shape, dtype=torch.float32, device=dev), params),
-            "w_sum": torch.zeros((bsz, n), device=dev),
-            "buf_cnt": torch.zeros((bsz, n), dtype=torch.int64, device=dev),
+            "w_sum": torch.zeros((bsz, m), device=dev),
+            "buf_cnt": torch.zeros((bsz, m), dtype=torch.int64, device=dev),
         }
         # compact keeps the in-flight state in (N, budget) receiver slots
-        # plus a dropped row n for padding scatters; the oracles (N, N)
+        # plus a dropped row n for padding scatters, sharded its (m, budget)
+        # block of them; the oracles (N, N)
         arrive = torch.full(
-            (bsz, n + 1, self.delivery_budget) if compact else (bsz, n, n),
+            (bsz, n + 1, self.delivery_budget) if compact
+            else (bsz, m, self.delivery_budget) if sharded else (bsz, n, n),
             _NEVER, dtype=torch.int32, device=dev)
-        live = arrive[:, :n]
-        min_acc = torch.full((bsz, n), torch.inf, device=dev)
-        min_sender = torch.zeros((bsz, n), dtype=torch.int64, device=dev)
+        live = arrive[:, :m]
+        min_acc = torch.full((bsz, m), torch.inf, device=dev)
+        min_sender = torch.zeros((bsz, m), dtype=torch.int64, device=dev)
         next_train = self._initial_countdown()
         fedavg_rounds = torch.zeros((bsz,), dtype=torch.int64, device=dev)
         broadcasts = np.zeros((bsz, n), np.int64)
         deliveries = np.zeros((bsz,), np.int64)
-        max_due = np.zeros((bsz,), np.int64)
+        due_ticks = np.zeros((cfg.ticks, bsz), np.int64)
         acc_rows = []
+        # the sharded engine's pool of sent models (its own block, then the
+        # exchanged ones), exchanged again after every tick on which a node
+        # trained; nothing is due before the first one
+        pool = None
+        trained = False
 
         for t in range(cfg.ticks):
             # ---- 0. membership: events apply at the TOP of the tick;
@@ -625,17 +744,26 @@ class LaxSimulator:
                                            decayed, s["rep"])
             else:
                 a_t = c["alive"]
+            if sharded and trained:
+                pool = self._exchange(s["sent"])
 
             # ---- 1. deliveries due at t; an arrival at an offline
             # receiver expires without delivering
             expired = live == t
-            due = expired & a_t[:, :, None]
+            due = expired & a_t[:, lo:lo + m, None]
             counts = due.sum((1, 2)).cpu().numpy()        # host sync 1 of 2
             if counts.any():
                 if compact and counts.max() > self.compact_budget:
                     self._overflow(t, counts)
+                rcv, src, ok, lengths, spans = items_of(due, counts)
+                if sharded:
+                    row = c["row_of_src"][src]
+                else:
+                    # every engine but sharded reads the (B * N) sent rows
+                    row = src + rcv // n * n
+                    pool = tree.map(lambda x: x.flatten(0, 1), s["sent"])
                 acc_sum, w_sum, batch_min, batch_sender = self._reduce(
-                    s, counts, *items_of(due, counts))
+                    s, counts, pool, row, rcv, src, ok, lengths, spans)
                 if not counts.all():
                     # a member with nothing due this tick keeps its buffer
                     # untouched, as its single run does
@@ -651,7 +779,7 @@ class LaxSimulator:
                 min_sender = torch.where(better, batch_sender, min_sender)
             live.masked_fill_(expired, _NEVER)
             deliveries += counts
-            max_due = np.maximum(max_due, counts)
+            due_ticks[t] = counts
 
             # ---- 2. weighted FedAvg (Eq. 3) where the buffer filled up
             fire = s["buf_cnt"] >= rep_impl.buffer_size
@@ -681,7 +809,8 @@ class LaxSimulator:
             fedavg_rounds += apply.sum(1)
 
             # ---- 3. train + broadcast where the countdown expired;
-            # offline nodes' countdowns freeze
+            # offline nodes' countdowns freeze. The countdowns and the set
+            # of trainers cover all N nodes on every rank
             if self._membership:
                 next_train = next_train - torch.where(
                     c["churn"][:, None], a_t, True).to(torch.int32)
@@ -689,12 +818,19 @@ class LaxSimulator:
                 next_train = next_train - 1
             trains = (next_train <= 0) & a_t
             trains_np = trains.cpu().numpy()              # host sync 2 of 2
-            if trains_np.any():
-                rows = self._train_and_send(params, s["sent"], trains_np, t)
+            trained = bool(trains_np.any())
+            if trained:
+                rows = self._train_and_send(params, s["sent"],
+                                            trains_np[:, lo:lo + m], t)
                 if compact:
                     b, r = rows // n, rows % n
                     arrive[b[:, None], c["inv_dst"][b, r], c["inv_slot"][b, r]] = \
                         t + c["inv_delay"][b, r]
+                elif sharded:
+                    # receiver-driven: slot k of a receiver is due delay
+                    # ticks after its k-th in-ball sender trains
+                    sched = trains[0][c["slot_src"]] & c["slot_valid"]
+                    live.copy_(torch.where(sched, t + c["slot_delay"], live))
                 else:
                     sched = trains[:, None, :] & c["reach"]
                     live.copy_(torch.where(sched, t + c["delay"], live))
@@ -712,25 +848,74 @@ class LaxSimulator:
 
         final = dict(params=params, sent=s["sent"], rep=s["rep"],
                      arrive=live, w_sum=s["w_sum"], buf_cnt=s["buf_cnt"],
-                     min_acc=min_acc, min_sender=min_sender,
-                     next_train=next_train, fedavg_rounds=fedavg_rounds)
+                     min_acc=min_acc, min_sender=min_sender)
         final = {k: tree.map(lambda x: x.cpu(), v) for k, v in final.items()}
-        acc = (torch.stack(acc_rows, 1).cpu().numpy() if acc_rows
-               else np.zeros((bsz, 0, n), np.float32))
+        final["next_train"] = next_train.cpu()
+        final["fedavg_rounds"] = fedavg_rounds.cpu()
+        acc = (torch.stack(acc_rows, 1).cpu() if acc_rows
+               else torch.zeros((bsz, 0, m)))
+        extra = {}
+        if sharded:
+            final, acc, deliveries, due_ticks, extra = self._gather(
+                final, acc, deliveries, due_ticks)
+        acc = acc.numpy()
+        max_due = due_ticks.max(0) if cfg.ticks else np.zeros((bsz,), np.int64)
         return [self._package(b, tree.map(lambda x: x[b], final),
                               dict(broadcasts=broadcasts[b],
                                    deliveries=int(deliveries[b]),
-                                   max_due=int(max_due[b])), acc[b])
+                                   max_due=int(max_due[b])), acc[b], extra)
                 for b in range(bsz)]
 
-    def _package(self, b, final, counters, acc_history):
+    def _exchange(self, sent):
+        """The sharded engine's pool of sent models: this rank's block,
+        then the block of each shard offset, received through
+        ``tree_ppermute`` (every rank issues the same exchanges)."""
+        own = tree.map(lambda x: x[0], sent)
+        blocks = [own] + [gossip.tree_ppermute(own, self._group, perm)
+                          for perm in self._exchange_perms]
+        if len(blocks) == 1:
+            return own
+        return tree.map(lambda *xs: torch.cat(xs), *blocks)
+
+    def _gather(self, final, acc, deliveries, due_ticks):
+        """Every rank's blocks joined in rank order, on every rank: the full
+        final state and accuracy records, the summed counters, and the
+        per-tick due counts summed over the shards. Raises on every rank
+        when a shard's tick went over its work-buffer bound."""
+        local = (final, acc, deliveries, due_ticks)
+        parts = [local]
+        if self.shards > 1:
+            parts = [None] * self.shards
+            dist.all_gather_object(parts, local, group=self._group)
+        shard_max = [int(p[3].max()) if p[3].size else 0 for p in parts]
+        over = [q for q, d in enumerate(shard_max) if d > self.shard_budget]
+        if over:
+            raise RuntimeError(
+                f"sharded delivery overflow: shard {over} had "
+                f"{[shard_max[q] for q in over]} due deliveries on one tick "
+                f"but the per-shard work buffer holds {self.shard_budget} "
+                "(SimLaxConfig.compact_budget override; the exact per-shard "
+                "topology.compaction_budget bound cannot overflow)")
+        blocks = [p[0] for p in parts]
+        joined = {k: tree.map(lambda *xs: torch.cat(xs, 1),
+                              *[f[k] for f in blocks])
+                  for k in ("params", "sent", "rep", "arrive", "w_sum",
+                            "buf_cnt", "min_acc", "min_sender")}
+        joined["next_train"] = final["next_train"]      # the same everywhere
+        joined["fedavg_rounds"] = sum(f["fedavg_rounds"] for f in blocks)
+        extra = {"shards": self.shards, "shard_budget": self.shard_budget,
+                 "max_shard_deliveries": max(shard_max)}
+        return (joined, torch.cat([p[1] for p in parts], 2),
+                sum(p[2] for p in parts), sum(p[3] for p in parts), extra)
+
+    def _package(self, b, final, counters, acc_history, extra):
         """Host-side result assembly for member ``b``: expand the compact
         slot state back to the (N, N) oracle layout and fold the counters
         into the stats."""
         cfg = self.cfg
         n = self.topology.num_nodes
         final_arrive = final["arrive"].numpy()
-        if cfg.delivery == "compact":
+        if cfg.delivery in ("compact", "sharded"):
             dense = np.full((n, n), _NEVER, np.int32)
             dense[np.arange(n)[:, None], self._slot_src_np[b]] = final_arrive
             final_arrive = dense
@@ -741,7 +926,6 @@ class LaxSimulator:
                                            device="meta"), final["sent"]),
             cfg.compress)
         deliveries = counters["deliveries"]
-        extra = {}
         if self._batched:
             extra = {"federation_index": b, "batch_size": self.batch_size,
                      "seed": int(self._seeds[b])}

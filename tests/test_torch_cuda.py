@@ -6,6 +6,7 @@ versions to the JAX package). Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -412,3 +413,86 @@ def test_run_sweep_defaults_to_the_card(cuda):
         ticks=12, train_interval=(4, 4), ttl=1, record_every=4), target_acc=0.3)
     assert [o.stats["batch_size"] for o in out] == [4] * 4
     assert sweeps.frontier_tables(out, target_acc=0.3)["time_to_accuracy"]
+
+
+def test_sharded_single_shard_lenet_is_compact_on_the_card(cuda):
+    """delivery="sharded" in process (one shard): the compact engine's
+    calls at the compact engine's shapes, so bit for bit its result."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.chain import attacks, scenarios, simlax
+    from repro_torch.core import topology
+    from repro_torch.core.reputation import IMPL2
+    n = 8
+    sc = scenarios.lenet_scenario(n, malicious=(0,), pool=32, eval_size=8,
+                                  test_size=32, train_steps=1, batch=8)
+    spec = attacks.FederationSpec.build(
+        n, malicious=(0,), initial_countdown=[3 + (7 * i) % 6 for i in range(n)])
+    cfg = simlax.SimLaxConfig(ticks=24, train_interval=(6, 6), latency=1, ttl=2,
+                              record_every=8, compress="int8")
+    a, b = (simlax.LaxSimulator(sc, topology.kregular(n, 2), spec, IMPL2, c,
+                                device="cuda").run()
+            for c in (cfg, dataclasses.replace(cfg, delivery="sharded")))
+    assert a.stats["deliveries"] > 0 and b.stats["shards"] == 1
+    assert all(a.stats[k] == b.stats[k] for k in ("broadcasts", "deliveries",
+                                                  "fedavg_rounds"))
+    for k in a.final_state:
+        np.testing.assert_array_equal(a.final_state[k], b.final_state[k])
+    np.testing.assert_array_equal(a.reputation, b.reputation)
+    np.testing.assert_array_equal(a.acc_history, b.acc_history)
+    for x, y in zip(tree.leaves(a.params) + tree.leaves(a.sent),
+                    tree.leaves(b.params) + tree.leaves(b.sent)):
+        np.testing.assert_array_equal(x, y)
+
+
+def _int8_round_rank(rank, device):
+    """One of two ranks on one card: LeNet-5 params from seed 40 + rank,
+    one int8 gossip round; returns (new params, wire counters, launches)."""
+    from repro_torch import convert
+    from repro_torch.configs.lenet_dfl import CONFIG
+    from repro_torch.core import gossip, topology
+    from repro_torch.core.reputation import IMPL2
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import lenet
+    params = lenet.init(torch.Generator(device=device).manual_seed(40 + rank),
+                        CONFIG, device)
+    round_ = gossip.make_gossip_round(
+        lambda p, vb: torch.tensor(0.5, device=device), fed_size=2, ttl=1,
+        rep_impl=IMPL2, compress="int8", topology=topology.ring(2))
+    reset_launches()
+    gossip.reset_wire()
+    new, rep, met = round_(params, torch.ones(2, device=device), None)
+    torch.cuda.synchronize()
+    out = (convert.params_to_numpy(new), dict(gossip.WIRE), dict(LAUNCHES),
+           rep.cpu().numpy(), float(met["models_received"]))
+    every = [None, None]
+    torch.distributed.all_gather_object(every, out)
+    return every
+
+
+def test_int8_round_on_two_ranks_of_one_card_matches_its_oracle(cuda):
+    """Two ranks on cuda:0 under gloo (the exchange staged through host
+    memory): each quantizes once, sends the int8 payload, dequantizes what
+    it receives, and averages it with its own model (one sender: Eq. 3 is
+    the mean of the two)."""
+    from repro_torch import tree
+    from repro_torch.configs.lenet_dfl import CONFIG
+    from repro_torch.core import compression
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import lenet
+    got = mesh_lib.spawn(_int8_round_rank, 2, device="cuda:0", backend="gloo",
+                         timeout=240)
+    params = [lenet.init(torch.Generator(device="cuda").manual_seed(40 + r),
+                         CONFIG, "cuda") for r in range(2)]
+    for r in range(2):
+        new, wire, launches, rep, received = got[r]
+        other = compression.roundtrip_tree(params[1 - r])
+        for x, own, o in zip(tree.leaves(new), tree.leaves(params[r]),
+                             tree.leaves(other)):
+            want = (0.5 * (o.double() + own.double())).cpu().numpy()
+            np.testing.assert_allclose(x, want, rtol=1e-6, atol=1e-7)
+        assert wire["bytes"] == compression.payload_bytes(params[r], "int8")
+        assert wire["messages"] == 1 and received == 1.0
+        assert launches["quantize"] == 1 and launches["dequantize"] == 1
+        np.testing.assert_array_equal(rep, np.ones(2, np.float32))

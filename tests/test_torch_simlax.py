@@ -363,13 +363,15 @@ def test_zero_delivery_ticks_and_all_dead():
 
 @pytest.mark.parametrize("what", ["sharded", "batched"])
 def test_unported_paths_raise(what):
-    """The sharded engine is not ported (item 12); a batch on it is refused
-    with the JAX package's ValueError (batches run on the other engines)."""
+    """The sharded engine needs one rank a shard: more shards than ranks is
+    refused, naming the launcher; a batch on it is refused with the JAX
+    package's ValueError (batches run on the other engines)."""
     sc = p_scenarios.toy_scenario(4)
     spec = p_attacks.FederationSpec.build(4)
     cfg = dataclasses.replace(p_simlax.SimLaxConfig(ticks=2), delivery="sharded")
     if what == "sharded":
-        error, match = NotImplementedError, "item 12"
+        cfg = dataclasses.replace(cfg, shards=2)
+        error, match = ValueError, "launch.mesh.spawn"
     else:
         spec = p_attacks.BatchedFederationSpec.build([spec, spec])
         error, match = ValueError, "BatchedFederationSpec"
