@@ -117,7 +117,31 @@ prints its last line):
    within rtol 1e-5, reputation rows exactly), the bytes each rank sends
    (the schedule's steps x ``compression.payload_bytes``), ms a round, and
    quantize once a rank and dequantize once a received model a round;
-14. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
+14. LM training and the federated LM launcher, llama3-8b at full width
+   (d_model 4096, 32 heads, KV 8, d_ff 14336, vocab 128 256), random
+   weights from a seed: (b) both flash kernels' log-sum-exp and output
+   against attention_ref's (the sm90 kernel at B 2 x S 4096 x H 32, causal
+   and with a 512 window; the simt kernel in fp32 at Dh 16 and in bf16 on
+   misaligned views) and the recompute backward against autograd through
+   attention_ref; the forward timed with and without the lse beside
+   cuDNN's and the plain version, the backward beside cuDNN's; both wire
+   kernels at the depth-1 llama3-8b tree (1.27 B elements) and at the
+   sharded engine's (5, ...) LeNet trainers' tree; (a) one step at depth 1,
+   B 1 x S 1024 through the kernels against the same step with the
+   attention forced through the plain version (loss within 2e-2, each grad
+   leaf within 2e-2 relative L2), then the launcher's ``run_plain`` at
+   depth 4 (of 32), B 2 x S 4096, 6 AdamW steps with remat full, counted:
+   losses, grad norms, wall a step, peak memory, 8 sm90 flash launches a
+   step (4 layers x forward and remat recompute), params changed, and one
+   more step profiled (device idle share, where the time goes); (c) the
+   launcher's ``run_dfl``: F = 2 ranks on cuda:0 under gloo, depth 1,
+   B 1 x S 1024, 2 local steps, 2 rounds, ring ttl 1, int8 wire, counted
+   in each rank (quantize once a round, dequantize once a valid receipt,
+   the wire bytes, per-rank peak memory, ms a round); (d) the launcher's
+   ``main`` with ``--dfl --fed 4 --fail-node 1@2 --rounds 4`` at
+   ``smoke_config("llama3-8b")`` on cuda:0: F=4, then F=3 over the
+   survivors;
+15. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line.
 
 It exits non-zero without a result when CUDA is unavailable or when the
@@ -2155,6 +2179,464 @@ def run_sharded_and_gossip(torch, lax10_result, lax10_wall):
                 transport=spawned[2]["transport"])
 
 
+# ------------------------------------------------------------ phase 14
+# LM training and the federated LM launcher, llama3-8b at full width
+# (d_model 4096, 32 heads, KV 8, d_ff 14336, vocab 128 256), depth cut
+TRAIN_DEPTH = 4          # of 32: 1.92 B params, ~29 GiB of fp32 params + AdamW
+TRAIN_ARGS = ["--arch", "llama3-8b", "--steps", "6", "--batch", "2", "--seq",
+              "4096", "--device", "cuda"]   # train_4k's length, B cut from 256
+TRAIN_FLASH_A_STEP = 2 * TRAIN_DEPTH          # forward + remat recompute a layer
+CHECK_SHAPE = (1, 1, 1024)        # depth, B, S of the kernels-vs-plain step
+CHECK_LOSS_TOL = 2e-2
+# each grad leaf's relative L2 distance, kernels vs plain route (the plain
+# route's backward is autograd through attention_ref in fp32; the flash
+# backward rounds p, dout and ds to bf16, as the JAX one does): twice the
+# largest read on an H100 (9.2e-3, the embedding table; median 7.5e-3)
+CHECK_GRAD_TOL = 2e-2
+DFL_F = 2                # two full-width nodes on one 80 GB card (~20 GiB each)
+DFL_ARGS = ["--arch", "llama3-8b", "--dfl", "--fed", str(DFL_F), "--rounds", "2",
+            "--local-steps", "2", "--ttl", "1", "--batch", "1", "--seq", "1024",
+            "--compress", "int8", "--device", "cuda:0", "--backend", "gloo",
+            "--timeout", "900"]
+ELASTIC_ARGS = ["--arch", "llama3-8b", "--smoke", "--dfl", "--fed", "4",
+                "--fail-node", "1@2", "--rounds", "4", "--local-steps", "1",
+                "--batch", "2", "--seq", "64", "--device", "cuda:0",
+                "--backend", "gloo", "--timeout", "600"]
+# (name, B, S, H, KH, Dh, causal, window, dtype, route): the training
+# forward's heads (sm90), a windowed case, the simt kernel in fp32 at
+# Dh 16 (ragged) and in bf16 on views 8 bytes off alignment
+LSE_CASES = (
+    ("train S=4096 causal", 2, 4096, 32, 8, 128, True, 0, "bfloat16", "sm90"),
+    ("train S=4096 w=512", 1, 4096, 32, 8, 128, True, 512, "bfloat16", "sm90"),
+    ("simt S=1000 Dh=16", 2, 1000, 4, 2, 16, True, 0, "float32", "simt"),
+    ("simt view S=1024", 1, 1024, 32, 8, 128, True, 0, "bfloat16", "simt"))
+# absolute, on log-sum-exps of ~5-10: ten times the largest read on an H100
+# (1.9e-6, sm90; simt 9.5e-7)
+LSE_TOL = 2e-5
+# the flash backward against autograd through attention_ref: relative L2 a
+# grad (bf16 rounding of p, dout and ds); read on an H100: <= 2.8e-3 in
+# bf16, <= 3.9e-3 in fp32
+BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-2}
+
+
+def _depth(n):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama3-8b"), num_layers=n)
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def check_flash_training(torch):
+    """Phase 14b: both flash kernels' lse (and output) against
+    attention_ref's, and the recompute backward (through the model's
+    autograd Function) against autograd through attention_ref, on the
+    card; each route read from the launch counters. Returns the worst
+    errors by route."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import flash as flash_model
+    g = torch.Generator(device="cuda").manual_seed(14)
+    worst = {}
+    for name, B, S, H, KH, Dh, causal, window, dtype, route in LSE_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v = _qkv(torch, g, B, S, H, KH, Dh, dt)
+        if route == "simt" and dtype == "bfloat16":
+            q, k, v = (_simt_view(torch, x) for x in (q, k, v))
+        (out, lse), used = _flash_route(torch, q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+        if used != route:
+            fail(f"flash lse {name} ran the {used} kernel, not {route}")
+        want, want_lse = attention_ref(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+        out_err = float((out.float() - want.float()).abs().max())
+        lse_err = float((lse - want_lse).abs().max())
+        if out_err > FLASH_TOL[dtype] or lse_err > LSE_TOL:
+            fail(f"flash {route} {name}: output |diff| {out_err:.3e}, lse "
+                 f"|diff| {lse_err:.3e} (limits {FLASH_TOL[dtype]}, {LSE_TOL})")
+        del out, lse, want, want_lse
+        # the backward: the model's Function (kernel forward + recompute
+        # backward) against autograd through the plain version
+        dout = torch.randn((B, S, H, Dh), generator=g, device="cuda").to(dt)
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        qg = leaves[0].reshape(B, S, KH, H // KH, Dh)
+        flash_model.flash_attention_padded(qg, leaves[1], leaves[2], causal,
+                                           window).reshape(B, S, H, Dh).backward(dout)
+        refs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        attention_ref(*refs, causal=causal, window=window).backward(dout)
+        bwd = [_rel_l2(a.grad, b.grad) for a, b in zip(leaves, refs)]
+        if max(bwd) > BWD_TOL[dtype] or not all(
+                bool(torch.isfinite(a.grad).all()) for a in leaves):
+            fail(f"flash backward {name}: grads' relative L2 {bwd} > "
+                 f"{BWD_TOL[dtype]}")
+        worst[route] = max(worst.get(route, 0.0), out_err, lse_err)
+        print(f"flash {route} {name:22s} {dtype:8s} B={B} H={H} KH={KH} Dh={Dh}: "
+              f"max |out - plain| {out_err:.3e}, max |lse - plain| {lse_err:.3e} "
+              f"(limit {LSE_TOL}); backward vs autograd through the plain "
+              f"version: relative L2 dq/dk/dv {[float(f'{x:.3e}') for x in bwd]} "
+              f"(limit {BWD_TOL[dtype]}) OK")
+        del q, k, v, dout, leaves, refs, qg
+        torch.cuda.empty_cache()
+    return worst
+
+
+def time_flash_training(torch, B, S, H, KH, Dh):
+    """Phase 14b's times at the training shape: the sm90 forward without
+    and with the lse (the new output's cost), cuDNN's forward, the plain
+    version, and the recompute backward (plain PyTorch) beside autograd
+    through cuDNN's attention. Returns the lse row for the JSON line."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import flash as flash_model
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v = _qkv(torch, g, B, S, H, KH, Dh, torch.bfloat16)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
+    want, want_lse = attention_ref(q, k, v, return_lse=True)
+    err = max(float((out.float() - want.float()).abs().max()),
+              float((lse - want_lse).abs().max()))
+    del want, want_lse
+    dout = torch.randn(out.shape, generator=g, device="cuda").to(torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = {}
+    for label, fn, iters in (
+            ("no_lse", lambda: ops.flash_attention(q, k, v), 20),
+            ("lse", lambda: ops.flash_attention(q, k, v, return_lse=True), 20),
+            ("library", lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 20),
+            ("plain", lambda: attention_ref(q, k, v, return_lse=True), 3),
+            ("backward", lambda: flash_model.flash_backward(
+                q, k, v, out, lse, dout, causal=True, window=0), 3)):
+        ms[label], method, _ = device_ms(fn, iters)
+        ms[label + "_method"] = method
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (qt, kt, vt))
+
+    def library_backward():
+        o = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(o, (qr, kr, vr), dout.transpose(1, 2))
+
+    ms["library_fwd_bwd"], _, _ = device_ms(library_backward, 5)
+    ops_count = 4 * Dh * _flash_pairs(S, 0) * B * H
+    nbytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KH * Dh) + 4 * B * H * S
+    b_ms, b_by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S)
+    bwd_ops = 2.5 * ops_count          # S, dP, dV, dQ, dK products
+    bwd_bound, bwd_by = bound_ms(2 * (4 * B * S * H * Dh + 4 * B * S * KH * Dh)
+                                 + 4 * B * H * S, bwd_ops, BF16_OPS_PER_S)
+    shape = f"B={B} S={S} H={H} KH={KH} Dh={Dh} bfloat16 causal"
+    print(f"time flash sm90 training forward {shape}: no lse {ms['no_lse']:.5f} ms, "
+          f"with lse {ms['lse']:.5f} ms ({(ms['lse'] / ms['no_lse'] - 1) * 100:+.2f}%), "
+          f"cuDNN {ms['library']:.5f} ms, plain {ms['plain']:.5f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}); {ops_count / ms['lse'] / 1e9:.2f} TFLOP/s, "
+          f"{b_ms / ms['lse']:.4f} of the bound [{ms['lse_method']}]")
+    print(f"time flash recompute backward (plain PyTorch, fp32 products of bf16 "
+          f"values) {shape}: {ms['backward']:.4f} ms; bound {bwd_bound:.5f} ms "
+          f"({bwd_by}); cuDNN forward + backward {ms['library_fwd_bwd']:.4f} ms")
+    row = dict(ms=ms["lse"], plain_ms=ms["plain"], library_ms=ms["library"],
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=err, shape=shape,
+               no_lse_ms=ms["no_lse"], backward_ms=ms["backward"],
+               backward_bound_ms=bwd_bound,
+               library_fwd_bwd_ms=ms["library_fwd_bwd"],
+               timing=f"{ms['lse_method']}/{ms['plain_method']}/{ms['library_method']}")
+    del q, k, v, out, lse, dout, qt, kt, vt, qr, kr, vr
+    torch.cuda.empty_cache()
+    return row
+
+
+def time_simt_lse(torch):
+    """The simt kernel with the lse at phase 14d's shape (smoke_config
+    llama3-8b, B 2 x S 64, bf16 activations, Dh 16): its row."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    cfg = smoke_config("llama3-8b")
+    B, S, H, KH, Dh = 2, 64, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v = _qkv(torch, g, B, S, H, KH, Dh, torch.bfloat16)
+    (out, lse), used = _flash_route(torch, q, k, v, return_lse=True)
+    want, want_lse = attention_ref(q, k, v, return_lse=True)
+    err = max(float((out.float() - want.float()).abs().max()),
+              float((lse - want_lse).abs().max()))
+    if used != "simt" or err > FLASH_TOL["bfloat16"]:
+        fail(f"simt lse at the elastic run's shape: route {used}, error {err}")
+    ms, method, _ = device_ms(lambda: ops.flash_attention(q, k, v, return_lse=True),
+                              200)
+    plain_ms, plain_method, _ = device_ms(
+        lambda: attention_ref(q, k, v, return_lse=True), 200)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms, lib_method, _ = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 200)
+    ops_count = 4 * Dh * _flash_pairs(S, 0) * B * H
+    nbytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KH * Dh) + 4 * B * H * S
+    b_ms, b_by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S)
+    shape = f"B={B} S={S} H={H} KH={KH} Dh={Dh} bfloat16 causal"
+    print(f"time flash simt with lse {shape}: kernel_ms={ms:.5f} plain_ms="
+          f"{plain_ms:.5f} library_ms={lib_ms:.5f} bound_ms={b_ms:.7f} ({b_by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, shape=shape,
+                timing=f"{method}/{plain_method}/{lib_method}")
+
+
+def time_lm_wire(torch):
+    """Both wire kernels at the depth-1 llama3-8b tree (1.27 B fp32
+    elements, the federation's payload) and at the sharded engine's
+    stacked (5, ...) LeNet trainers' tree (rows 1s/2s)."""
+    from repro_torch import tree
+    from repro_torch.configs.lenet_dfl import CONFIG
+    from repro_torch.models import lenet, transformer
+    meta = transformer.init(torch.Generator(), _depth(1), "meta")
+    lm = time_tree(torch, "llama3-8b depth-1 tree", [tuple(x.shape) for x in
+                                                     tree.leaves(meta)], seed=17)
+    lenet_shapes = [tuple(x.shape) for x in tree.leaves(
+        lenet.init(torch.Generator(), CONFIG, "cpu"))]
+    sharded = time_tree(torch, "sharded (5, ...) LeNet trainers' tree",
+                        [(5, *s) for s in lenet_shapes], seed=18)
+    return lm, sharded
+
+
+def check_train_kernels_vs_plain(torch):
+    """Phase 14a's check: one step's loss and grads at depth 1, B 1 x S
+    1024 through the kernels (forward with lse, recompute backward) and
+    with the attention forced through the plain version (autograd through
+    attention_ref) from the same params and batch."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import flash as flash_model
+    from repro_torch.train import step as step_lib
+    depth, B, S = CHECK_SHAPE
+    cfg = _depth(depth)
+    state = step_lib.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(3),
+                                      device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in TokenPipeline(cfg.vocab_size, B, S).batch_at(0).items()}
+    reset_launches()
+    loss_k, _, grads_k = step_lib.loss_and_grads(state["params"], cfg, batch)
+    torch.cuda.synchronize()
+    kernel_launches = dict(LAUNCHES)
+    reset_launches()
+    with flash_model.plain_route():
+        loss_p, _, grads_p = step_lib.loss_and_grads(state["params"], cfg, batch)
+    torch.cuda.synchronize()
+    if kernel_launches.get("flash_attention_sm90", 0) != 2 * depth or LAUNCHES:
+        fail(f"kernels-vs-plain step: launches {kernel_launches} with the "
+             f"kernels, {dict(LAUNCHES)} on the plain route")
+    gap = abs(float(loss_k) - float(loss_p))
+    names = ["/".join(map(str, p)) for p in _tree_paths(state["params"])]
+    rel = {n: _rel_l2(a, b) for n, a, b in zip(names, tree.leaves(grads_k),
+                                               tree.leaves(grads_p))}
+    worst = max(rel, key=rel.get)
+    print(f"train step kernels vs plain route (llama3-8b depth {depth}, B {B} x "
+          f"S {S}, full width): loss {float(loss_k):.6f} vs {float(loss_p):.6f} "
+          f"(|diff| {gap:.3e}, limit {CHECK_LOSS_TOL}); grads' relative L2 a "
+          f"leaf: max {rel[worst]:.4e} ({worst}), median "
+          f"{float(np.median(list(rel.values()))):.4e} (limit {CHECK_GRAD_TOL})")
+    if gap > CHECK_LOSS_TOL or rel[worst] > CHECK_GRAD_TOL:
+        fail("the training step through the kernels disagrees with the plain route")
+    del state, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return dict(loss_gap=gap, grad_rel_l2_max=rel[worst], grad_rel_l2=rel)
+
+
+def _tree_paths(t, prefix=()):
+    if isinstance(t, dict):
+        return [p for k in sorted(t) for p in _tree_paths(t[k], prefix + (k,))]
+    if isinstance(t, (list, tuple)):
+        return [p for i, v in enumerate(t) for p in _tree_paths(v, prefix + (i,))]
+    return [prefix]
+
+
+def run_lm_training(torch):
+    """Phase 14a: the launcher's run_plain at llama3-8b full width, depth
+    TRAIN_DEPTH, B 2 x S 4096, 6 AdamW steps with remat full, counted; then
+    one more step under the profiler."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import layers
+    from repro_torch.train import step as step_lib
+    args = launch_train.parse_args(TRAIN_ARGS)
+    cfg = _depth(TRAIN_DEPTH)
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, history = launch_train.run_plain(args, cfg, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for h in history:
+        print(f"lm train step {h['step']}: loss {h['loss']:.5f} acc "
+              f"{h['accuracy']:.4f} grad_norm {h['grad_norm']:.5f} wall "
+              f"{h['seconds']:.4f} s")
+    steps = len(history)
+    after_first = sum(h["seconds"] for h in history[1:]) / (steps - 1)
+    per_step = {k: v / steps for k, v in launches.items()}
+    print(f"lm train (llama3-8b depth {TRAIN_DEPTH}, full width, B {args.batch} x "
+          f"S {args.seq}, remat {cfg.remat}): {steps} steps in {wall:.3f} s, "
+          f"{after_first:.4f} s a step after the first "
+          f"({args.batch * args.seq / after_first:.1f} tokens/s); peak device "
+          f"memory {peak / 2**30:.3f} GiB; launches {json.dumps(launches, sort_keys=True)} "
+          f"({per_step.get('flash_attention', 0):.1f} flash a step)")
+    import math
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in history):
+        fail("lm train: a loss or grad norm is not finite")
+    want = TRAIN_FLASH_A_STEP * steps
+    if (launches.get("flash_attention", 0) != want
+            or launches.get("flash_attention_sm90", 0) != want):
+        fail(f"lm train: flash launches {launches}, not {TRAIN_FLASH_A_STEP} a "
+             f"step, all sm90 ({want})")
+    embed0 = layers.embed_init(torch.Generator(device="cuda").manual_seed(0),
+                               cfg.vocab_size, cfg.d_model, dev)["table"]
+    if (torch.equal(embed0, state["params"]["embed"]["table"])
+            or bool((state["params"]["final_norm"]["scale"] == 1).all())
+            or int(state["step"]) != steps):
+        fail("lm train: the params did not change")
+    del embed0
+
+    # one more step under the profiler: device busy / idle share
+    ts = step_lib.make_train_step(cfg)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             TokenPipeline(cfg.vocab_size, args.batch, args.seq).batch_at(steps).items()}
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        state, _ = ts(state, batch)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    by_name = {}
+    for e in measured_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+    busy = sum(by_name.values())
+    flash = sum(t for n, t in by_name.items() if any(sym in n for sym in FLASH_SYMBOLS))
+    print(f"profile lm train step (profiler on): wall {pwall:.4f} s, device busy "
+          f"{busy:.4f} s, device idle share {1 - busy / pwall:.4f}, flash forward "
+          f"{flash:.4f} s = {flash / busy:.4f} of busy")
+    kinds = {}
+    for n, sec in by_name.items():
+        kind = ("flash forward kernel" if any(sym in n for sym in FLASH_SYMBOLS)
+                else "fp32 GEMM (sgemm: the recompute backward's products)"
+                if "sgemm" in n else "bf16 GEMM" if any(
+                    x in n for x in ("nvjet", "xmma", "gemm", "Kernel2")) else
+                "other (elementwise, reductions, copies)")
+        kinds[kind] = kinds.get(kind, 0.0) + sec
+    for kind, sec in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        print(f"  by kind: {sec:.4f} s ({sec / busy:.3f} of busy)  {kind}")
+    for n, sec in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  device {sec:.4f} s ({sec / busy:.3f} of busy)  {n[:90]}")
+    del state, batch
+    torch.cuda.empty_cache()
+    return dict(steps=steps, wall_s=wall, step_s_after_first=after_first,
+                losses=[h["loss"] for h in history],
+                grad_norms=[h["grad_norm"] for h in history], peak_bytes=peak,
+                launches=launches, profile=dict(wall=pwall, busy=busy,
+                                                idle=1 - busy / pwall,
+                                                flash_share=flash / busy,
+                                                by_kind=kinds))
+
+
+def run_lm_federation(torch):
+    """Phase 14c: the launcher's run_dfl, F = 2 ranks on cuda:0 under gloo,
+    llama3-8b full width at depth 1, int8 wire, counted in each rank."""
+    from repro_torch import tree
+    from repro_torch.core import compression
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
+    args = launch_train.parse_args(DFL_ARGS)
+    cfg = _depth(1)
+    t0 = time.perf_counter()
+    ranks = launch_train.run_dfl(args, cfg, torch.device("cuda:0"))
+    wall = time.perf_counter() - t0
+    meta = transformer.init(torch.Generator(), cfg, "meta")
+    payload = {c or "fp32": compression.payload_bytes(meta, c) for c in (None, "int8")}
+    n_params = sum(x.numel() for x in tree.leaves(meta))
+    for r in ranks:
+        rounds, lc, wire = r["rounds"], r["launches"], r["wire"]
+        received = sum(x["received"] for x in rounds)
+        # forward + remat recompute a local step (one layer), one a receipt
+        flash_want = args.rounds * 2 * args.local_steps + received
+        print(f"lm dfl rank {r['rank']}: peak device memory "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB; rounds " + "; ".join(
+                  f"{x['round']}: F={x['F']} loss {x['loss']:.5f} neighbor_acc "
+                  f"{x['neighbor_acc']:.4f} rep_min {x['rep_min']:.2f} local "
+                  f"{x['local_s']:.3f} s round {x['round_s'] * 1e3:.1f} ms"
+                  for x in rounds)
+              + f"; wire {wire.get('bytes', 0)} B in {wire.get('messages', 0)} "
+                f"messages, {wire.get('seconds', 0.0):.3f} s in the exchange; "
+                f"launches {json.dumps(lc, sort_keys=True)}")
+        if len(rounds) != args.rounds:
+            fail(f"lm dfl rank {r['rank']}: {len(rounds)} rounds")
+        for x in rounds:
+            if not (0.0 <= x["neighbor_acc"] <= 1.0 and 0.0 <= x["rep_min"] <= 1.0):
+                fail(f"lm dfl rank {r['rank']}: round {x}")
+        if lc.get("quantize", 0) != args.rounds or lc.get("dequantize", 0) != received:
+            fail(f"lm dfl rank {r['rank']}: {lc.get('quantize', 0)} quantize / "
+                 f"{lc.get('dequantize', 0)} dequantize launches, not one a round "
+                 f"({args.rounds}) / one a valid receipt ({received})")
+        if (lc.get("flash_attention_sm90", 0) != flash_want
+                or wire.get("bytes") != wire.get("messages", -1) * payload["int8"]):
+            fail(f"lm dfl rank {r['rank']}: flash {lc}, wire {wire}")
+    ratio = payload["int8"] / payload["fp32"]
+    print(f"lm dfl (F={DFL_F}, llama3-8b depth 1 full width, {n_params} params, "
+          f"B {args.batch} x S {args.seq}, H {args.local_steps}, ring ttl "
+          f"{args.ttl}, int8): {wall:.3f} s for the launch (spawn, init, "
+          f"{args.rounds} rounds); int8 payload {payload['int8']} B = {ratio:.4f} "
+          f"of fp32's {payload['fp32']} B")
+    return dict(wall_s=wall, ranks=ranks, payload_bytes=payload,
+                n_params=n_params)
+
+
+def run_lm_elastic(torch):
+    """Phase 14d: the launcher's main() with --dfl --fed 4 --fail-node 1@2
+    at smoke_config("llama3-8b") on cuda:0, 4 ranks: F=4, then F=3."""
+    from repro_torch.launch import train as launch_train
+    t0 = time.perf_counter()
+    ranks = launch_train.main(ELASTIC_ARGS)
+    wall = time.perf_counter() - t0
+    fs = [[x["F"] for x in r["rounds"]] for r in ranks]
+    if [r["rank"] for r in ranks] != [0, 2, 3] or fs != [[4, 4, 3, 3]] * 3:
+        fail(f"lm elastic: survivors {[r['rank'] for r in ranks]}, F by round {fs}")
+    launches = {k: sum(r["launches"].get(k, 0) for r in ranks)
+                for k in ("flash_attention", "flash_attention_sm90")}
+    if launches["flash_attention"] <= 0 or launches["flash_attention_sm90"]:
+        fail(f"lm elastic: flash launches {launches} (the simt kernel, Dh 16)")
+    print(f"lm elastic (smoke llama3-8b, --fed 4 --fail-node 1@2, 4 rounds on "
+          f"cuda:0): survivors {[r['rank'] for r in ranks]}, F by round {fs[0]}; "
+          f"{wall:.3f} s; flash launches over the survivors {launches}")
+    return dict(wall_s=wall, launches=launches, f_by_round=fs[0])
+
+
+def run_lm(torch):
+    """Phase 14: (b) kernel checks and times first (the plain attention at
+    B 2 x S 4096 needs ~30 GB), then (a) training, (c) the federation, (d)
+    the elastic run."""
+    t_phase = time.perf_counter()
+    lse_err = check_flash_training(torch)
+    rows = {"flash_attention_sm90": time_flash_training(torch, 2, 4096, 32, 8, 128),
+            "flash_attention": time_simt_lse(torch)}
+    rows["flash_attention_sm90"]["max_abs_err"] = max(
+        rows["flash_attention_sm90"]["max_abs_err"], lse_err["sm90"])
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], lse_err["simt"])
+    (q_lm, dq_lm), (q_sh, dq_sh) = time_lm_wire(torch)
+    check = check_train_kernels_vs_plain(torch)
+    train = run_lm_training(torch)
+    fed = run_lm_federation(torch)
+    elastic = run_lm_elastic(torch)
+    rows["flash_attention_sm90"]["launches"] = train["launches"]["flash_attention_sm90"]
+    rows["flash_attention"]["launches"] = elastic["launches"]["flash_attention"]
+    for name, row in (("quantize", q_lm), ("dequantize", dq_lm)):
+        row["launches"] = sum(r["launches"].get(name, 0) for r in fed["ranks"])
+    print(f"phase 14 took {time.perf_counter() - t_phase:.3f} s")
+    return dict(rows=rows, wire_lm=(q_lm, dq_lm), wire_sharded=(q_sh, dq_sh),
+                check=check, train=train, fed=fed, elastic=elastic)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2285,7 +2767,15 @@ def main() -> int:
                 shard["gossip"]["int8"][f"{kname}_a_round"]}
     print("sharded and gossip: " + json.dumps(shard, sort_keys=True))
 
-    # phase 14: report
+    # phase 14: LM training (depth 4, B 2 x S 4096, full width) and the
+    # federated LM launcher (F = 2 full width int8; the F = 4 -> 3 elastic run)
+    lm = run_lm(torch)
+    for kname, row in zip(("quantize", "dequantize"), lm["wire_sharded"]):
+        times[kname]["sharded"]["stacked_5_trainers"] = row
+    print("lm: " + json.dumps({k: v for k, v in lm.items() if k != "check"},
+                              sort_keys=True, default=str))
+
+    # phase 15: report
     kernels = []
     for kname, src, replaces, err in (
             ("quantize", "src/repro_torch/csrc/quantize.cu",
@@ -2311,6 +2801,29 @@ def main() -> int:
                         "timing": t["timing"],
                         **{k: t[k] for k in ("per_leaf_ms", "llama3_layer", "lax",
                                              "sharded") if k in t}})
+    # the training path's launch sites (phase 14): the forwards with the
+    # lse, and the wire kernels at the federation's llama3-8b depth-1 tree
+    for kname, site, src, replaces, row in (
+            ("flash_attention_sm90", "train_lse",
+             "src/repro_torch/csrc/flash_attention_sm90.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:82",
+             lm["rows"]["flash_attention_sm90"]),
+            ("flash_attention", "train_lse", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:82",
+             lm["rows"]["flash_attention"]),
+            ("quantize", "llama3_depth1", "src/repro_torch/csrc/quantize.cu",
+             "src/repro/kernels/quantize/quantize.py:37", lm["wire_lm"][0]),
+            ("dequantize", "llama3_depth1", "src/repro_torch/csrc/quantize.cu",
+             "src/repro/kernels/quantize/quantize.py:59", lm["wire_lm"][1])):
+        kernels.append({"name": f"{kname}@{site}", "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": row["launches"],
+                        "max_abs_err": row.get("max_abs_err", 0.0), "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row.get("library_ms"),
+                        **{k: v for k, v in row.items() if k not in (
+                            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                            "launches", "max_abs_err")}})
     f2 = times["wfedavg@f2"]
     print("wfedavg at f2.w: " + json.dumps(f2, sort_keys=True))
     print("flash at gemma3 local heads: " + json.dumps(

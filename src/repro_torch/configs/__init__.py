@@ -21,9 +21,18 @@ _REGISTRY = {
 }
 
 ARCH_IDS = tuple(_REGISTRY)
+# the JAX package's other architectures: their layer kinds and frontends
+# come with ROADMAP.md queue 1, 'LM zoo: the other layer kinds and frontends'
+UNPORTED = ("chatglm3-6b", "command-r-35b", "dbrx-132b", "hubert-xlarge",
+            "llama4-maverick-400b-a17b", "llava-next-mistral-7b",
+            "recurrentgemma-2b", "xlstm-125m")
+_LAYERS_ITEM = "ROADMAP.md queue 1, 'LM zoo: the other layer kinds and frontends'"
 
 
 def get_config(arch_id: str) -> ArchConfig:
+    if arch_id in UNPORTED:
+        raise NotImplementedError(f"arch {arch_id!r} is not ported yet: "
+                                  f"{_LAYERS_ITEM}")
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
     return importlib.import_module(_REGISTRY[arch_id]).CONFIG

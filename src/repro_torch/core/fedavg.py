@@ -11,6 +11,11 @@ Two equivalent forms, as in the JAX package:
 If the total weight is ~0 (every sender's reputation crushed to 0), the
 previous model is kept unchanged. The choice is a ``torch.where`` on a
 device tensor, so no path reads the weights back to the host.
+
+The streaming form works in the accumulator's tensors: ``streaming_add``
+adds into them and ``streaming_finish`` writes the result there (a state
+is consumed by the call that takes it; at LM size each copy is the size of
+the model). The arithmetic is the JAX package's, operation for operation.
 """
 from __future__ import annotations
 
@@ -59,7 +64,7 @@ def streaming_init(model_like):
 def streaming_add(acc_state, model, weight):
     acc, w_t = acc_state
     w = torch.as_tensor(weight, device=w_t.device).to(torch.float32)
-    acc = tree.map(lambda a, m: a + w * m.to(torch.float32), acc, model)
+    acc = tree.map(lambda a, m: a.add_(w * m.to(torch.float32)), acc, model)
     return acc, w_t + w
 
 
@@ -69,9 +74,8 @@ def streaming_finish(acc_state, prev_model):
     safe = w_t > EPS
 
     def leaf(a, prev):
-        avg = a / torch.clamp_min(w_t, EPS)
         pf = prev.to(torch.float32)
-        out = 0.5 * (avg + pf)
-        return torch.where(safe, out, pf).to(prev.dtype)
+        out = a.div_(torch.clamp_min(w_t, EPS)).add_(pf).mul_(0.5)
+        return torch.where(safe, out, pf, out=out).to(prev.dtype)
 
     return tree.map(leaf, acc, prev_model)

@@ -140,8 +140,9 @@ def make_gossip_round(
     ``eval_fn(params, val_batch) -> accuracy`` in [0, 1] (a 0-d tensor),
     evaluated by the RECEIVER on its own validation batch (the receipt).
     ``mesh``: a ``launch.mesh.make_fed_mesh`` mesh, whose federation dim's
-    group carries the round (default: the default process group; with no
-    group up, ``fed_size`` must be 1). ``topology`` is any
+    group carries the round, or the federation's process group itself
+    (default: the default process group; with no group up, ``fed_size``
+    must be 1). ``topology`` is any
     ``topology.Topology`` over ``fed_size`` nodes (default: the
     bidirectional ring); the round sends ``gossip_schedule(topology, ttl)
     .num_collectives`` messages a rank at most.
@@ -162,6 +163,15 @@ def make_gossip_round(
             f"topology has {topology.num_nodes} nodes, fed_size={fed_size}")
     sched = topology_lib.gossip_schedule(topology, ttl, schedule=schedule)
     senders = sched.senders
+    # the last step that forwards each step's payload: a payload is dropped
+    # after it (at LM size each one is the size of the model)
+    last_use = list(range(len(sched.steps)))
+    own_last = -1          # the last step that sends this node's own payload
+    for t, (_, parent) in enumerate(sched.steps):
+        if parent >= 0:
+            last_use[parent] = t
+        else:
+            own_last = t
     # punish-the-worst needs competition: a node with a single distinct
     # sender (degree-1 topologies) would otherwise zero its only neighbour's
     # reputation and freeze itself out of averaging
@@ -187,6 +197,7 @@ def make_gossip_round(
             src = payload0 if parent < 0 else payloads[parent]
             payload = tree_ppermute(src, group, list(perm))
             payloads.append(payload)
+            del src
             sender = int(senders[s, me])
             valid = sender >= 0
             acc = zero
@@ -200,6 +211,12 @@ def make_gossip_round(
             sender_ids.append(max(sender, 0))
             accs.append(acc)
             valids.append(valid)
+            model = payload = None
+            if s == own_last:
+                payload0 = None
+            for p in range(s + 1):
+                if last_use[p] <= s:
+                    payloads[p] = None
         new_params = fedavg.streaming_finish(acc_state, params)    # Eq. 3
         valid_vec = torch.tensor(valids, dtype=torch.bool, device=zero.device)
         acc_vec = torch.stack(accs + [zero])[:len(accs)]

@@ -25,6 +25,12 @@
 // dim is padded with zeros to DP = 16 NCH, NCH in {1, 2, 4, 8, 16}. Shared
 // rows have an odd stride, so column reads are free of bank conflicts.
 //
+// With a non-null `lse` (B, H, Sq) fp32, the kernel also writes each row's
+// log-sum-exp m + log(max(l, 1e-37)) from its final running max and
+// denominator (the JAX `_fwd_impl`'s formula), for the training backward;
+// a row with no kept key has m = -1e38 and gets -1e38. Lane tx 0 of the
+// row's half-warp writes it (every lane holds the reduced m and l).
+//
 // What bounds it on the card: operations. At the serving path's shape
 // (B 4, S 4096, H 32, KH 8, Dh 128, bf16, causal) a call does 5.5e11 FLOP
 // on 335 MB of inputs and output, 1600 FLOP a byte, far above the card's
@@ -58,6 +64,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;     // (B, H, Sq), or null: not written
   int H, KH, Sq, Skv, Dh;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
@@ -203,6 +210,8 @@ __global__ void __launch_bounds__(kThreads)
     const int qi = q0 + ty * 4 + i;
     if (qi >= p.Sq) continue;
     const float li = fmaxf(l[i], 1e-37f);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(long long)blockIdx.x * p.Sq + qi] = m[i] + logf(li);
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       const int d = tx + 16 * c;
@@ -226,7 +235,8 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 }
 
 template <typename T>
-int run(const void* q, const void* k, const void* v, void* o, int batch,
+int run(const void* q, const void* k, const void* v, void* o, float* lse,
+        int batch,
         int H, int KH, int Sq, int Skv, int Dh, long long q_sb, long long q_ss,
         long long q_sh, long long k_sb, long long k_ss, long long k_sh,
         long long v_sb, long long v_ss, long long v_sh, long long o_sb,
@@ -236,7 +246,7 @@ int run(const void* q, const void* k, const void* v, void* o, int batch,
       Sq < 1 || Skv < 1 || window < 0 ||
       (long long)batch * H > 0x7fffffffLL || (Sq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
-  const Params p{q,    k,    v,    o,    H,    KH,   Sq,     Skv,    Dh,
+  const Params p{q,    k,    v,    o,    lse,  H,    KH,   Sq,     Skv,    Dh,
                  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,   v_ss,   v_sh,
                  o_sb, o_ss, o_sh, causal, window, scale};
   cudaStream_t s = (cudaStream_t)stream;
@@ -252,13 +262,13 @@ int run(const void* q, const void* k, const void* v, void* o, int batch,
 
 #define FLASH_ENTRY(NAME, T)                                                  \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,   \
-                      int batch, int H, int KH, int Sq, int Skv, int Dh,      \
+                      void* lse, int batch, int H, int KH, int Sq, int Skv, int Dh,      \
                       long long q_sb, long long q_ss, long long q_sh,         \
                       long long k_sb, long long k_ss, long long k_sh,         \
                       long long v_sb, long long v_ss, long long v_sh,         \
                       long long o_sb, long long o_ss, long long o_sh,         \
                       int causal, int window, float scale, void* stream) {    \
-    return run<T>(q, k, v, o, batch, H, KH, Sq, Skv, Dh, q_sb, q_ss, q_sh,    \
+    return run<T>(q, k, v, o, (float*)lse, batch, H, KH, Sq, Skv, Dh, q_sb, q_ss, q_sh,    \
                   k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,       \
                   causal, window, scale, stream);                             \
   }

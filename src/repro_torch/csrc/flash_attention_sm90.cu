@@ -18,6 +18,13 @@
 // (src/repro/models/flash.py:286, `p.astype(v_blk.dtype)`); the Pallas
 // kernel and the plain version keep p in fp32. l sums the fp32 p.
 //
+// With a non-null `lse` (B, H, Sq) fp32, each consumer also writes its
+// rows' log-sum-exp after the last kv tile, from the m and l it holds in
+// registers: m is in log2 units here, so lse = m ln 2 + log(max(l, 1e-37))
+// (the JAX `_fwd_impl`'s m + log(max(l, 1e-37))), and -1e38 for a row with
+// no kept key (m = -1e38), as the simt kernel writes. The lane with
+// lane % 4 == 0 writes each of its two rows; nothing stays live longer.
+//
 // What bounds it: operations. At the serving path's shape (B 4, S 4096,
 // H 32, KH 8, Dh 128, causal) a call does 5.50e11 FLOP on 335 MB, so the
 // least time is the FLOPs over the bf16 tensor-core peak, 0.556 ms.
@@ -67,6 +74,7 @@ constexpr int kStages = 2;      // K/V ring depth
 constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
 constexpr float kNegInf = -1.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DH>
 struct Tiles {
@@ -82,6 +90,7 @@ struct Tiles {
 struct Params {
   CUtensorMap tm_q, tm_k, tm_v;   // 4-D (Dh, S, heads, B) maps, 128-byte swizzle
   __nv_bfloat16* o;
+  float* lse;                     // (B, H, Sq), or null: not written
   long long o_sb, o_ss, o_sh;
   int H, KH, Sq, Skv;
   int causal, window;
@@ -268,6 +277,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < 2; ++r) {
       const int qi = row + 8 * r;
       if (qi >= p.Sq) continue;
+      if (p.lse != nullptr && lane % 4 == 0)
+        p.lse[(long long)blockIdx.x * p.Sq + qi] =
+            m[r] == kNegInf ? kNegInf : m[r] * kLn2 + logf(l[r]);
 #pragma unroll
       for (int j = 0; j < DH / 8; ++j) {
         const __nv_bfloat162 v2 = __floats2bfloat162_rn(o[4 * j + 2 * r] / l[r],
@@ -360,7 +372,8 @@ bool tma_ok(const void* ptr, long long sb, long long ss, long long sh) {
 }  // namespace
 
 extern "C" int flash_attention_fwd_sm90_bf16(
-    const void* q, const void* k, const void* v, void* o, int batch, int H, int KH,
+    const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+    int H, int KH,
     int Sq, int Skv, int Dh, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh, int causal,
@@ -369,10 +382,11 @@ extern "C" int flash_attention_fwd_sm90_bf16(
       window < 0 || (long long)batch * H > 0x7fffffffLL ||
       (Sq + kBQ - 1) / kBQ > 65535 || !tma_ok(q, q_sb, q_ss, q_sh) ||
       !tma_ok(k, k_sb, k_ss, k_sh) || !tma_ok(v, v_sb, v_ss, v_sh) ||
-      ((uintptr_t)o % 4) != 0 || o_ss % 2 != 0 || o_sh % 2 != 0 || o_sb % 2 != 0)
+      ((uintptr_t)o % 4) != 0 || ((uintptr_t)lse % 4) != 0 || o_ss % 2 != 0 || o_sh % 2 != 0 || o_sb % 2 != 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.o_sb = o_sb;
   p.o_ss = o_ss;
   p.o_sh = o_sh;

@@ -30,9 +30,10 @@ SOURCES = ("quantize", "wfedavg", "flash_attention", "flash_attention_sm90")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# flash_attention: q, k, v, o; batch, H, KH, Sq, Skv, Dh; (batch, seq, head)
-# strides of q, k, v, o in elements; causal, window, scale; stream
-_FLASH = [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P]
+# flash_attention: q, k, v, o, lse (null: none written); batch, H, KH, Sq,
+# Skv, Dh; (batch, seq, head) strides of q, k, v, o in elements; causal,
+# window, scale; stream
+_FLASH = [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P]
 # C signatures: every pointer and the stream as c_void_p; status is the
 # launch's cudaGetLastError() (0 = cudaSuccess)
 SIGNATURES: Dict[str, Dict[str, List]] = {

@@ -19,6 +19,11 @@ This is routing by shape, not a fallback: a kernel that fails to build,
 encode or launch raises, and the call is never retried on the other one.
 ``LAUNCHES["flash_attention"]`` counts every launch of either kernel,
 ``LAUNCHES["flash_attention_sm90"]`` the sm90 kernel's alone.
+
+``return_lse=True`` has the kernel also write each row's log-sum-exp,
+(B, H, Sq) fp32, ``m + log(max(l, 1e-37))`` from its running max m and
+denominator l, which the training backward reads; a call without it passes
+a null pointer and the kernel writes none.
 """
 from __future__ import annotations
 
@@ -47,10 +52,12 @@ def _variant(q, k, v) -> str:
     return "sm90"
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
+                    return_lse=False):
     """Masked softmax attention; query head h reads kv head h // (H // KH).
 
-    ``scale`` defaults to Dh ** -0.5. Returns (B, Sq, H, Dh) in q.dtype."""
+    ``scale`` defaults to Dh ** -0.5. Returns (B, Sq, H, Dh) in q.dtype;
+    with ``return_lse``, (out, lse) with lse (B, H, Sq) fp32."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention takes q (B, Sq, H, Dh), k/v (B, Skv, "
                          f"KH, Dh); got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -63,7 +70,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
         raise ValueError(f"window must be >= 0, got {window}")
     scale = Dh ** -0.5 if scale is None else float(scale)
     if not q.is_cuda:
-        return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                             return_lse=return_lse)
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes fp32 or bf16 q, k, v of one dtype; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -75,8 +83,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash kernel takes a unit stride along the head dim")
     out = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if B == 0 or Sq == 0 or H == 0:
-        return out
+        return (out, lse) if return_lse else out
     if k.shape[1] == 0:
         raise ValueError("flash_attention needs at least one key")
     variant = _variant(q, k, v)
@@ -87,7 +97,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     with torch.cuda.device(q.device):
         status = getattr(build.load(source), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, KH, Sq, k.shape[1], Dh,
+            0 if lse is None else lse.data_ptr(), B, H, KH, Sq, k.shape[1], Dh,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             int(bool(causal)), int(window), scale,
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -95,4 +105,4 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     LAUNCHES["flash_attention"] += 1
     if variant == "sm90":
         LAUNCHES["flash_attention_sm90"] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -35,7 +35,7 @@ from repro_torch import device as device_lib
 
 # the kernels a rank may launch; spawn builds them before it starts the
 # ranks, so the ranks only load them
-RANK_KERNELS = ("quantize",)
+RANK_KERNELS = ("quantize", "flash_attention", "flash_attention_sm90")
 # how long spawn waits for the other ranks' errors after the first
 ERROR_GRACE_S = 2.0
 
@@ -83,8 +83,12 @@ def fed_axis_name(mesh) -> str:
 
 
 def fed_group(mesh=None):
-    """The process group of ``mesh``'s federation dim; with no mesh, the
-    default group, or None when no process group is up."""
+    """The process group of ``mesh``'s federation dim; ``mesh`` may also be
+    a process group, which is the federation's (the launcher's survivors
+    after a node fails); with no mesh, the default group, or None when no
+    process group is up."""
+    if isinstance(mesh, dist.ProcessGroup):
+        return mesh
     if mesh is not None:
         return mesh.get_group(fed_axis_name(mesh))
     if dist.is_available() and dist.is_initialized():

@@ -1,8 +1,11 @@
 """Attention: GQA projections, flash attention over the prompt, and
 one-token decode against a KV cache (full or ring-buffered window).
 
-Port of the JAX package's ``models/attention.py``, ``attn_impl="flash"``.
-Full-sequence attention goes through ``models.flash`` (the flash kernel);
+Port of the JAX package's ``models/attention.py``. Full-sequence attention
+goes through ``models.flash`` (the flash kernel and its recompute backward)
+with ``attn_impl="flash"``, and through the blocked online-softmax scans
+(``_blocked_global``, ``_blocked_local``: plain PyTorch, differentiated by
+autograd as JAX AD differentiates them) with ``attn_impl="naive"``;
 decode is plain PyTorch (``_sdpa``), as the JAX package does it outside any
 kernel. Caches are updated in place: ``attn_apply`` and ``attn_decode``
 write the new keys and values into the cache tensors they are given (the
@@ -14,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ENC_ATTN, LOCAL_ATTN
 from repro_torch.models import layers as L
-from repro_torch.models.flash import TRAINING_ITEM, flash_attention_padded
+from repro_torch.models.flash import flash_attention_padded
 
 NEG_INF = -2.0e38
 
@@ -73,20 +76,83 @@ def _sdpa(q, k, v, bias):
     return torch.einsum("bhgqk,bkhd->bqhgd", p, v)
 
 
+def _blocks(n, block, what):
+    b = min(block, n)
+    if n % b:
+        raise ValueError(f"{what} {n} is not a multiple of its block {b}")
+    return b, n // b
+
+
+def _blocked_global(q, k, v, *, causal, q_offset, block_q, block_kv):
+    """Blocked attention with an online softmax (fp32 running max and
+    denominator). q (B,Sq,KH,G,Dh); k/v (B,Skv,KH,Dh)."""
+    B, Sq, KH, G, Dh = q.shape
+    Skv = k.shape[1]
+    bq, nq = _blocks(Sq, block_q, "query length")
+    bkv, nk = _blocks(Skv, block_kv, "key length")
+    scale = Dh ** -0.5
+    outs = []
+    for i in range(nq):
+        q_blk = q[:, i * bq:(i + 1) * bq]
+        q_pos = q_offset + i * bq + torch.arange(bq, device=q.device)
+        m = torch.full((B, KH, G, bq), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, KH, G, bq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, KH, G, bq, Dh), dtype=torch.float32, device=q.device)
+        for j in range(nk):
+            k_blk, v_blk = k[:, j * bkv:(j + 1) * bkv], v[:, j * bkv:(j + 1) * bkv]
+            k_pos = j * bkv + torch.arange(bkv, device=q.device)
+            bias = _mask_bias(q_pos, k_pos, causal=causal, window=0)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk.to(torch.float32),
+                             k_blk.to(torch.float32)) * scale + bias
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v_blk.dtype), v_blk)
+            acc = acc * alpha[..., None] + pv.to(torch.float32)
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-37)
+        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))   # (B,bq,KH,G,Dh)
+    return torch.cat(outs, dim=1)
+
+
+def _blocked_local(q, k, v, *, window, q_offset, block_q):
+    """Exact banded attention: per q block slice KV[band]; O(S*(W+bq)) FLOPs."""
+    B, Sq, KH, G, Dh = q.shape
+    Skv = k.shape[1]
+    bq, nq = _blocks(Sq, block_q, "query length")
+    band = min(Skv, window + bq)
+    outs = []
+    for i in range(nq):
+        q_start = q_offset + i * bq
+        start = min(max(q_start + bq - band, 0), Skv - band)
+        q_pos = q_start + torch.arange(bq, device=q.device)
+        k_pos = start + torch.arange(band, device=q.device)
+        bias = _mask_bias(q_pos, k_pos, causal=True, window=window)
+        outs.append(_sdpa(q[:, i * bq:(i + 1) * bq], k[:, start:start + band],
+                          v[:, start:start + band], bias))
+    return torch.cat(outs, dim=1)
+
+
 def attn_apply(p, cfg, x, positions, *, kind, cache=None):
-    """Full-sequence attention (prefill). Returns (y, cache), the cache
-    filled in place."""
-    if cfg.attn_impl != "flash":
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} (the blocked scans) is not ported "
-            f"yet: {TRAINING_ITEM}")
+    """Full-sequence attention (training, prefill). Returns (y, cache), the
+    cache filled in place."""
     B, S, _ = x.shape
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(p, cfg, x, positions)
-    causal = kind != ENC_ATTN
-    window = cfg.window if kind == LOCAL_ATTN else 0
-    ctx = flash_attention_padded(q.reshape(B, S, KH, H // KH, Dh), k, v,
-                                 causal, window)
+    qg = q.reshape(B, S, KH, H // KH, Dh)
+    if cfg.attn_impl == "flash":
+        causal = kind != ENC_ATTN
+        window = cfg.window if kind == LOCAL_ATTN else 0
+        ctx = flash_attention_padded(qg, k, v, causal, window)
+    elif cfg.attn_impl != "naive":
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    elif kind == LOCAL_ATTN:
+        ctx = _blocked_local(qg, k, v, window=cfg.window, q_offset=0,
+                             block_q=cfg.attn_block_q)
+    else:
+        ctx = _blocked_global(qg, k, v, causal=kind != ENC_ATTN, q_offset=0,
+                              block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
     y = L.dense_apply(p["o"], ctx.reshape(B, S, H, Dh), contract_dims=2)
     if cache is not None:
         _prefill_cache(cache, k, v, kind, seq_len=S)

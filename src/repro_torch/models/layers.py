@@ -137,3 +137,24 @@ def apply_rope(x, positions, *, rotary_dim, theta):
     if rotary_dim < d:
         out = torch.cat([out, rest], dim=-1)
     return out
+
+
+# --------------------------------------------------------------------------- loss
+def xent_terms(logits, labels):
+    """Per-token (nll, top-1 hit) of fp32 logits (..., V) against int labels
+    (...): ``logsumexp - gold`` and ``argmax == label`` as fp32."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    hit = (torch.argmax(logits, -1) == labels).to(torch.float32)
+    return logz - gold, hit
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Token-level cross entropy; logits fp32 (..., V), labels int (...).
+    Returns (loss, accuracy)."""
+    nll, hit = xent_terms(logits, labels)
+    if mask is None:
+        n = torch.tensor(float(nll.numel()), device=nll.device)
+        return nll.sum() / n, hit.sum() / n
+    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.sum(nll * mask) / denom, torch.sum(hit * mask) / denom

@@ -1,4 +1,5 @@
-"""The multi-architecture transformer, serving path: init, prefill, decode.
+"""The multi-architecture transformer: init, the training loss, prefill and
+decode.
 
 Port of the JAX package's ``models/transformer.py`` with its param and
 cache layout: a config's layer stack is grouped into identical repeating
@@ -10,14 +11,24 @@ layer of the unit), and ``num_layers % unit_len`` trailing layers in
 
 Entry points:
     init(generator, cfg, device)                      -> params
+    train_loss(params, cfg, batch)                    -> (loss, metrics)
     cache_init(cfg, batch, max_seq, device)           -> KV cache
     prefill(params, cfg, batch, cache)                -> (last_logits, cache)
     decode_step(params, cfg, tokens, cache, position) -> (logits, cache)
 
 Caches are written in place: ``prefill`` and ``decode_step`` return the
 cache they were given. Attention layers (global, local, encoder) are
-ported; the other layer kinds, MoE FFNs, the modality frontends and
-training raise ``NotImplementedError``.
+ported; the other layer kinds, MoE FFNs and the modality frontends raise
+``NotImplementedError``.
+
+Rematerialization (``cfg.remat``, the JAX package's ``jax.checkpoint`` of
+each unit): under autograd, ``"full"`` runs each unit through
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so only the
+unit-boundary residual is kept and the unit's forward, flash kernel
+included, runs again in the backward; ``"none"`` keeps every activation.
+Each loss chunk's unembedding and cross entropy is checkpointed too, so
+the (B, LOSS_CHUNK, vocab) fp32 logits of only one chunk are alive at a
+time.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch import tree
@@ -34,6 +46,8 @@ from repro_torch.models import layers as L
 
 _ATTN_KINDS = (ATTN, LOCAL_ATTN, ENC_ATTN)
 LAYERS_ITEM = "ROADMAP.md queue 1, 'LM zoo: the other layer kinds and frontends'"
+REMAT_ITEM = "ROADMAP.md queue 1, 'LM training', remat=\"dots\""
+LOSS_CHUNK = 2048  # vocab-projection chunk (tokens) to bound logits memory
 
 
 def unit_len(cfg) -> int:
@@ -133,6 +147,29 @@ def _layer_decode(p, cfg, kind, h, position, cache_entry):
     return h + L.mlp_apply(p["ffn"], hn)
 
 
+def _remat(fn, cfg):
+    """``fn`` under ``cfg.remat`` when autograd records (training)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            f"remat='dots' (save the matmul outputs, recompute the rest) is not "
+            f"ported yet: {REMAT_ITEM}")
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _unit_params(stacked):
+    """The stacked units' params, one tree a unit. ``unbind`` views the
+    stacked leaves once: autograd then stacks the units' grads in one
+    backward op, where indexing each unit would add a zero-padded
+    stack-sized grad per unit."""
+    leaves = [x.unbind(0) for x in tree.leaves(stacked)]
+    return [tree.unflatten(stacked, [x[u] for x in leaves])
+            for u in range(len(leaves[0]) if leaves else 0)]
+
+
 def _stack_forward(params, cfg, h, positions, cache, decode_position=None):
     """Run all layers; cache may be None. Returns h."""
     n_units, n_rest, entries = unit_layout(cfg)
@@ -146,11 +183,15 @@ def _stack_forward(params, cfg, h, positions, cache, decode_position=None):
                 h = _layer_apply(layer_params[i], cfg, kind, h, positions, ce)
         return h
 
-    for u in range(n_units):
-        unit_params = tree.map(lambda x: x[u], params["units"])
-        unit_cache = None if cache is None else tree.map(lambda x: x[u],
-                                                         cache["units"])
-        h = run(unit_params, unit_cache, h)
+    if n_units:
+        units = _unit_params(params["units"])
+        caches = (None if cache is None
+                  else _unit_params(cache["units"]))
+        for u in range(n_units):
+            if decode_position is None and cache is None:
+                h = _remat(lambda h, u=u: run(units[u], None, h), cfg)(h)
+            else:
+                h = run(units[u], caches[u], h)
     if n_rest:
         h = run(params["rest"], None if cache is None else cache["rest"], h)
     return h
@@ -173,6 +214,47 @@ def _unembed(params, cfg, h):
 
 
 # ------------------------------------------------------------------ entrypoints
+def train_loss(params, cfg, batch):
+    """Next-token cross entropy in bf16 activations. ``batch``: tokens and
+    labels (B, S), optional loss_mask. Returns (loss, metrics) with metrics
+    ``loss``, ``accuracy`` (token top-1) and ``aux`` (0: no MoE layers)."""
+    h, positions = _embed_inputs(params, cfg, batch)
+    h = _stack_forward(params, cfg, h, positions, None)
+    h = L.norm_apply(params["final_norm"], h, cfg.norm)
+
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    B, S, _ = h.shape
+    chunk = min(LOSS_CHUNK, S)
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the loss "
+                         f"chunk {chunk}")
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+
+    def chunk_loss(hs, ls, ms):
+        logits = L.unembed_apply(table, hs)
+        nll, acc = L.xent_terms(logits, ls)
+        return (nll * ms).sum(), (acc * ms).sum()
+
+    if torch.is_grad_enabled():
+        loss_fn = lambda *a: checkpoint(chunk_loss, *a, use_reentrant=False)
+    else:
+        loss_fn = chunk_loss
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    tot, totacc, totw = zero, zero, zero
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        ms = (torch.ones(labels[:, sl].shape, dtype=torch.float32, device=h.device)
+              if mask is None else mask[:, sl].to(torch.float32))
+        nll, acc = loss_fn(h[:, sl], labels[:, sl], ms)
+        tot, totacc, totw = tot + nll, totacc + acc, totw + ms.sum()
+    totw = torch.clamp_min(totw, 1.0)
+    aux = zero
+    loss = tot / totw + 0.01 * aux
+    return loss, {"loss": (tot / totw).detach(), "accuracy": totacc / totw,
+                  "aux": aux}
+
+
 def prefill(params, cfg, batch, cache, dtype=torch.bfloat16):
     """Process the prompt, fill the cache, return last-token logits (fp32).
     ``dtype`` is the activation/residual dtype (blocks compute in fp32

@@ -15,19 +15,22 @@ def _is_node(x) -> bool:
 def leaves(tree, is_leaf: Optional[Callable[[Any], bool]] = None) -> List:
     """Leaves in ``jax.tree.leaves`` order (sorted dict keys)."""
     out: List = []
-
-    def walk(t):
-        if (is_leaf is not None and is_leaf(t)) or not _is_node(t):
-            out.append(t)
-        elif isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k])
-        else:
-            for v in t:
-                walk(v)
-
-    walk(tree)
+    _collect(tree, is_leaf, out)
     return out
+
+
+def _collect(t, is_leaf, out: List) -> None:
+    # a module-level function, not a closure that calls itself: such a
+    # closure is a reference cycle that would keep ``out`` (at LM size a
+    # model's worth of grads) alive until the garbage collector runs
+    if (is_leaf is not None and is_leaf(t)) or not _is_node(t):
+        out.append(t)
+    elif isinstance(t, dict):
+        for k in sorted(t):
+            _collect(t[k], is_leaf, out)
+    else:
+        for v in t:
+            _collect(v, is_leaf, out)
 
 
 def unflatten(like, new_leaves, is_leaf: Optional[Callable[[Any], bool]] = None):

@@ -496,3 +496,115 @@ def test_int8_round_on_two_ranks_of_one_card_matches_its_oracle(cuda):
         assert wire["messages"] == 1 and received == 1.0
         assert launches["quantize"] == 1 and launches["dequantize"] == 1
         np.testing.assert_array_equal(rep, np.ones(2, np.float32))
+
+
+# ------------------------------------------------------------ LM training
+@pytest.mark.parametrize("B,S,H,KH,Dh,causal,window,dtype,route", [
+    (1, 1024, 8, 2, 128, True, 0, "bfloat16", "sm90"),
+    (1, 1000, 8, 2, 64, True, 128, "bfloat16", "sm90"),
+    (1, 512, 4, 2, 256, False, 0, "bfloat16", "sm90"),
+    (2, 100, 4, 2, 16, True, 0, "float32", "simt"),
+    (2, 100, 4, 2, 16, True, 32, "bfloat16", "simt"),
+    (1, 20, 2, 1, 8, True, 4, "float32", "simt"),
+])
+def test_flash_lse_and_backward_vs_plain(cuda, B, S, H, KH, Dh, causal, window,
+                                         dtype, route):
+    """Both kernels write the plain version's log-sum-exp (abs 2e-5 on
+    values of ~5-10, chip_smoke's bound; -1e38 for a row without kept
+    keys), and the model's recompute backward on the kernel's lse matches
+    autograd through the plain version within the bf16 rounding of p, dout
+    and ds (relative L2 1e-2, chip_smoke's bound)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import flash
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(S + Dh)
+    q = torch.randn((B, S, H, Dh), generator=g, device="cuda").to(dt)
+    k, v = (torch.randn((B, S, KH, Dh), generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    reset_launches()
+    out, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert LAUNCHES["flash_attention_sm90"] == (route == "sm90")
+    want, want_lse = attention_ref(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    tol = 1e-5 if dtype == "float32" else 1.6e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2e-5)
+    dout = torch.randn(out.shape, generator=g, device="cuda").to(dt)
+    grads = []
+    for fn in ("kernel", "plain"):
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        if fn == "kernel":
+            flash.flash_attention_padded(xs[0].reshape(B, S, KH, H // KH, Dh), xs[1],
+                                         xs[2], causal, window).reshape(
+                                             out.shape).backward(dout)
+        else:
+            attention_ref(*xs, causal=causal, window=window).backward(dout)
+        grads.append([x.grad.float() for x in xs])
+    for a, b in zip(*grads):
+        rel = float((a - b).norm() / b.norm())
+        assert rel < 1e-2, rel
+
+
+def test_lse_of_rows_without_kept_keys_on_both_kernels(cuda):
+    """Query rows past Skv + window keep no key: both kernels write -1e38,
+    the plain version's LSE_EMPTY."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import LSE_EMPTY, attention_ref
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for Dh, dtype in ((16, torch.float32), (128, torch.bfloat16)):
+        q = torch.randn((1, 300, 2, Dh), generator=g, device="cuda").to(dtype)
+        k, v = (torch.randn((1, 100, 2, Dh), generator=g, device="cuda").to(dtype)
+                for _ in range(2))
+        _, lse = ops.flash_attention(q, k, v, causal=True, window=50, return_lse=True)
+        _, want = attention_ref(q, k, v, causal=True, window=50, return_lse=True)
+        empty = torch.arange(300, device="cuda") >= 100 + 50 - 1
+        assert bool((lse[..., empty] == LSE_EMPTY).all())
+        torch.testing.assert_close(lse[..., ~empty], want[..., ~empty], rtol=0,
+                                   atol=2e-5)
+
+
+def test_train_step_through_kernels_matches_plain_route(cuda):
+    """One smoke-size llama3-8b step (bf16 activations) through the kernels
+    and with the attention forced through the plain version: loss within
+    2e-2, grads within 2e-2 relative L2 a leaf (chip_smoke's bound at full
+    width); the kernel launched twice a
+    layer (forward, remat recompute), the plain route never."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import flash
+    from repro_torch.train import step
+    cfg = dataclasses.replace(smoke_config("llama3-8b"), head_dim=64,
+                              d_model=256)     # Dh 64: the sm90 kernel
+    state = step.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in TokenPipeline(cfg.vocab_size, 2, 256).batch_at(0).items()}
+    reset_launches()
+    loss_k, _, g_k = step.loss_and_grads(state["params"], cfg, batch)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_sm90"] == 2 * cfg.num_layers
+    reset_launches()
+    with flash.plain_route():
+        loss_p, _, g_p = step.loss_and_grads(state["params"], cfg, batch)
+    assert not LAUNCHES
+    assert abs(float(loss_k) - float(loss_p)) < 2e-2
+    for a, b in zip(tree.leaves(g_k), tree.leaves(g_p)):
+        assert float((a - b).norm() / b.norm()) < 2e-2
+
+
+def test_train_launcher_defaults_to_the_card(cuda):
+    from repro_torch import tree
+    from repro_torch.launch import train
+    state, history = train.main(["--arch", "llama3-8b", "--smoke", "--steps", "3",
+                                 "--batch", "2", "--seq", "64"])
+    assert all(x.device.type == "cuda" for x in tree.leaves(state))
+    assert len(history) == 3 and all(np.isfinite(h["loss"]) for h in history)
