@@ -49,7 +49,8 @@ prints its last line):
    kernels; then a 36-tick window of the main path is profiled (device
    busy/idle share, host split by function);
 6. the serving path: ``python -m repro_torch.serve`` with llama3-8b at full
-   width and depth (8.03 B random fp32 params and their bf16 copy), B 4
+   width and depth (8.03 B random params, drawn in fp32 and stored in bf16
+   leaf by leaf), B 4
    prompts x P 4096 tokens, then 32 greedy decode steps; counts zeroed just
    before and read just after, and the sm90 flash kernel must have
    launched 32 times (one per layer), the logits be finite and every
@@ -141,7 +142,34 @@ prints its last line):
    ``main`` with ``--dfl --fed 4 --fail-node 1@2 --rounds 4`` at
    ``smoke_config("llama3-8b")`` on cuda:0: F=4, then F=3 over the
    survivors;
-15. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
+15. the rest of the LM zoo: (d) the simt flash kernel at hubert-xlarge's
+   encoder (B 2 x S 4096, H 16 = KH, Dh 80, bidirectional) and the sm90
+   kernel at recurrentgemma-2b's local layers (B 2 x S 4096, H 10, KH 1, Dh
+   256, window 2048), timed as phase 3 times the others; (a) each of
+   recurrentgemma-2b, chatglm3-6b, command-r-35b, dbrx-132b,
+   llama4-maverick, xlstm-125m, hubert-xlarge and llava-next at
+   ``smoke_config`` from the same params on the card (the simt kernel at Dh
+   16, one launch a prefill attention layer) and on the CPU (plain), a
+   ragged prompt and 4 decode steps in lockstep, fp32 within 1e-4 and bf16
+   within 5e-2 of the logits' scale (xLSTM 2e-2 a layer; MoE steps where
+   the two runs route a token to other experts at a near tie exempt, fp32
+   routing identical); (b) each at full width through ``serve.serve``
+   with bf16 weights drawn leaf by leaf (the depth cut only where one card
+   forces it: command-r 8 of 40, dbrx 2 of 40, llama4 2 of 48), B 2 x P
+   2048 + 8 decode steps (recurrentgemma P 4096, past its 2048 window;
+   llama4 B 1; hubert B 2 x S 4096 frames, the encoder forward only),
+   counted (the flash launches of one prefill: one a prefill attention
+   layer, sm90 at Dh 128 / 256, simt at hubert's Dh 80, none for xLSTM):
+   init, prefill and decode wall, peak memory, finite logits,
+   prefill-then-decode consistency (bf16 within 0.08 of the scale; xLSTM
+   in fp32 with tests/test_models.py's 0.06 a layer; MoE at a dropless
+   capacity), a profiled prefill (idle share, flash time, device time
+   under the MoE dispatch, RG-LRU scan and xLSTM blocks) and decode; the
+   sLSTM layer's prefill alone, its CUDA-graph route bitwise and timed
+   against the eager loop; (c) ``python -m
+   repro_torch.launch.train`` with its default arch, xlstm-125m at full
+   config, 3 steps at B 2 x S 1024;
+16. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line.
 
 It exits non-zero without a result when CUDA is unavailable or when the
@@ -710,20 +738,21 @@ def _flash_pairs(S: int, window: int) -> int:
 
 
 def time_flash(torch, B, S, H, KH, Dh, window=0, dtype="bfloat16",
-               plain_iters=3):
-    """The flash kernels at one causal shape, each beside the bound, the
-    plain version and one PyTorch call for the same function
+               plain_iters=3, causal=True):
+    """The flash kernels at one shape, each beside the bound, the plain
+    version and one PyTorch call for the same function
     (scaled_dot_product_attention, timed here only; with a window it takes
-    an explicit boolean mask). In bf16 the sm90 kernel runs on the tensors
-    as made and the simt kernel on ``_simt_view`` copies of the same values;
-    in fp32 only the simt kernel takes them. Each is held against the plain
-    version first. Returns {route: row}."""
+    an explicit boolean mask). In bf16 at an sm90 head dim the sm90 kernel
+    runs on the tensors as made and the simt kernel on ``_simt_view``
+    copies of the same values; at another head dim (hubert's 80) and in
+    fp32 only the simt kernel takes them, as made. Each is held against
+    the plain version first. Returns {route: row}."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     g = torch.Generator(device="cuda").manual_seed(5)
     q, k, v = _qkv(torch, g, B, S, H, KH, Dh, getattr(torch, dtype))
     inputs = {"simt": (q, k, v)}
-    if dtype == "bfloat16":
+    if dtype == "bfloat16" and Dh in ops.SM90_HEAD_DIMS:
         inputs = {"sm90": (q, k, v),
                   "simt": tuple(_simt_view(torch, x) for x in (q, k, v))}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))    # (B, heads, S, Dh)
@@ -736,12 +765,12 @@ def time_flash(torch, B, S, H, KH, Dh, window=0, dtype="bfloat16",
             return sdpa(qt, kt, vt, attn_mask=keep, enable_gqa=True)
     else:
         def library():
-            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-    want = attention_ref(q, k, v, window=window).float()
+            return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    want = attention_ref(q, k, v, causal=causal, window=window).float()
     lib_err = float((want - library().transpose(1, 2).float()).abs().max())
     errs = {}
     for kern, qkv in inputs.items():
-        got, used = _flash_route(torch, *qkv, window=window)
+        got, used = _flash_route(torch, *qkv, causal=causal, window=window)
         errs[kern] = float((got.float() - want).abs().max())
         if used != kern or not torch.allclose(got.float(), want, rtol=FLASH_TOL[dtype],
                                               atol=FLASH_TOL[dtype]):
@@ -749,18 +778,20 @@ def time_flash(torch, B, S, H, KH, Dh, window=0, dtype="bfloat16",
         del got
     del want
     plain_ms, plain_method, _ = device_ms(
-        lambda: attention_ref(q, k, v, window=window), plain_iters)
+        lambda: attention_ref(q, k, v, causal=causal, window=window), plain_iters)
     lib_ms, lib_method, lib_names = device_ms(library, 10)
-    ops_count = 4 * Dh * _flash_pairs(S, window) * B * H   # Q.K and P.V
+    pairs = _flash_pairs(S, window) if causal else S * S
+    ops_count = 4 * Dh * pairs * B * H   # Q.K and P.V
     nbytes = q.element_size() * (2 * B * S * H * Dh + 2 * B * S * KH * Dh)
     b_ms, b_by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S if dtype == "bfloat16"
                           else FP32_OPS_PER_S)
-    shape = (f"B={B} S={S} H={H} KH={KH} Dh={Dh} {dtype} causal"
+    shape = (f"B={B} S={S} H={H} KH={KH} Dh={Dh} {dtype} "
+             + ("causal" if causal else "bidirectional")
              + (f" w={window}" if window else ""))
     rows = {}
     for kern, qkv in inputs.items():
         iters = {"sm90": 20, "simt": 5 if S >= 1024 else 200}[kern]
-        fn = (lambda qkv=qkv: ops.flash_attention(*qkv, window=window))
+        fn = (lambda qkv=qkv: ops.flash_attention(*qkv, causal=causal, window=window))
         ms, method, names = device_ms(fn, iters)
         call = event_ms(fn, iters)
         timing = f"{method}/{plain_method}/{lib_method}"
@@ -1035,7 +1066,7 @@ def run_serving(torch):
           f"{sec['decode'] / steps * 1e3:.3f} ms/token")
     print(f"serving first row tokens: {out['tokens'][0].tolist()}")
     print(f"serving peak device memory: {peak / 2**30:.3f} GiB "
-          f"({peak} bytes); params fp32 + bf16 weight copy + KV cache")
+          f"({peak} bytes); bf16 weights (drawn leaf by leaf) + KV cache")
     print(f"serving launches: {json.dumps(launches, sort_keys=True)}")
     for kname in ("flash_attention", "flash_attention_sm90"):
         if launches.get(kname, 0) != 32:
@@ -1044,7 +1075,7 @@ def run_serving(torch):
     for name in ("prefill_logits", "logits"):
         if not bool(torch.isfinite(out[name]).all()):
             fail(f"serving {name} are not finite")
-    for what in ("params", "weights", "cache"):
+    for what in ("weights", "cache"):
         for leaf in tree.leaves(out[what]):
             if leaf is not None and leaf.device.type != "cuda":
                 fail(f"serving {what} left the card ({leaf.device})")
@@ -1063,7 +1094,7 @@ def check_serving_consistency(torch, out):
     from repro_torch.models import transformer
 
     cfg = get_config("llama3-8b")
-    prompts, weights = out["prompts"], out["weights"]
+    prompts, weights = out["inputs"]["tokens"], out["weights"]
     P = prompts.shape[1]
     cache = transformer.cache_init(cfg, prompts.shape[0], P + 1, "cuda")
     _, cache = transformer.prefill(weights, cfg, {"tokens": prompts[:, :P - 1]},
@@ -1091,7 +1122,7 @@ def profile_serving(torch, out, steps: int = 8):
     from repro_torch.models import transformer
 
     cfg = get_config("llama3-8b")
-    prompts, weights = out["prompts"], out["weights"]
+    prompts, weights = out["inputs"]["tokens"], out["weights"]
     B, P = prompts.shape
     cache = transformer.cache_init(cfg, B, P + steps, "cuda")
     shares = {}
@@ -2637,6 +2668,434 @@ def run_lm(torch):
                 check=check, train=train, fed=fed, elastic=elastic)
 
 
+# ------------------------------------------------------------ phase 15
+# the rest of the LM zoo. (arch, depth (None: the full stack), B, P): full
+# width; the depth cut only where one card forces it (bf16 weights: about
+# 14 GiB for command-r at 8 of 40 and dbrx at 2 of 40; llama4-maverick's
+# one unit of 2 layers, a dense and a 128-expert MoE one, 34.8 GiB)
+ZOO = (
+    ("chatglm3-6b", None, 2, 2048),
+    ("command-r-35b", 8, 2, 2048),
+    ("dbrx-132b", 2, 2, 2048),
+    ("llama4-maverick-400b-a17b", 2, 1, 2048),
+    ("recurrentgemma-2b", None, 2, 4096),
+    ("xlstm-125m", None, 2, 2048),
+    ("hubert-xlarge", None, 2, 4096),
+    ("llava-next-mistral-7b", None, 2, 2048),
+)
+ZOO_DECODE = 8
+# flash launches of one full-width prefill: (simt, sm90)
+ZOO_FLASH = {"chatglm3-6b": (0, 28), "command-r-35b": (0, 8), "dbrx-132b": (0, 2),
+             "llama4-maverick-400b-a17b": (0, 2), "recurrentgemma-2b": (0, 8),
+             "xlstm-125m": (0, 0), "hubert-xlarge": (48, 0),
+             "llava-next-mistral-7b": (0, 32)}
+ZOO_SMOKE_PROMPTS = (2, 40)
+# tests/test_torch_zoo.py's bounds: bf16 5e-2 of the logits' scale, xLSTM
+# 2e-2 of it a layer; MoE steps where the two runs routed a token to other
+# experts at a near tie (probabilities within 2e-2) are exempt
+XLSTM_BF16_PER_LAYER = 2e-2
+ROUTE_TIE = 2e-2
+# tests/test_models.py: xLSTM's prefill-then-decode in fp32, 0.06 a layer
+XLSTM_CONSISTENCY_PER_LAYER = 0.06
+# the device-time ranges read from a profiled prefill: (module, function)
+ZOO_RANGES = {
+    "dbrx-132b": (("moe", "_dispatch_combine"), ("moe", "_expert_ffn")),
+    "llama4-maverick-400b-a17b": (("moe", "_dispatch_combine"), ("moe", "_expert_ffn")),
+    "recurrentgemma-2b": (("rglru", "rglru_apply"), ("rglru", "scan")),
+    "xlstm-125m": (("xlstm", "mlstm_apply"), ("xlstm", "slstm_apply")),
+}
+ZOO_TRAIN_ARGS = ["--steps", "3", "--batch", "2", "--seq", "1024"]
+# rows 4h and 4r: (B, S, H, KH, Dh, window, causal)
+FLASH_HUBERT = (2, 4096, 16, 16, 80, 0, False)
+FLASH_RG_LOCAL = (2, 4096, 10, 1, 256, 2048, True)
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """Every router call of the port's MoE while the body runs: a list of
+    (experts, probs) as host arrays."""
+    import torch
+    from repro_torch.models import moe
+    calls, route = [], moe._route
+
+    def recorded(p, cfg, x):
+        gates, experts, aux = route(p, cfg, x)
+        probs = torch.softmax(moe.L.dense_apply(p["router"], x).float(), -1)
+        calls.append((experts.cpu().numpy(), probs.cpu().numpy()))
+        return gates, experts, aux
+
+    moe._route = recorded
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def _route_flip(card, cpu, dtype):
+    """Whether the card and the CPU routed a token to other experts; each
+    such token must be a near tie, and fp32 must route alike."""
+    import numpy as np
+    if len(card) != len(cpu):
+        fail(f"{len(card)} router calls on the card, {len(cpu)} on the CPU")
+    flip = False
+    for (ce, cp), (pe, _) in zip(card, cpu):
+        diff = (np.sort(ce, -1) != np.sort(pe, -1)).any(-1)
+        for ix in zip(*np.nonzero(diff)):
+            gap = abs(np.take(cp[ix], ce[ix]).min() - np.take(cp[ix], pe[ix]).min())
+            if dtype == "float32" or gap > ROUTE_TIE:
+                fail(f"{dtype} routing differs between card and CPU at {ix}: "
+                     f"{ce[ix]} against {pe[ix]} (probability gap {gap:.3e})")
+            flip = True
+    card.clear()
+    cpu.clear()
+    return flip
+
+
+def _zoo_smoke(torch, arch):
+    """Phase 15a for one arch: smoke_config from the same params on the card
+    (the simt flash kernel at Dh 16) and on the CPU (plain), a ragged
+    prompt and 4 decode steps in lockstep, fp32 and bf16. Returns the fp32
+    card run's prefill launches."""
+    from repro_torch import convert, serve
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer
+    cfg = smoke_config(arch)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    params = {"cuda": transformer.init(g, cfg, "cuda")}
+    params["cpu"] = convert.params_from_jax(convert.params_to_numpy(params["cuda"]), "cpu")
+    B, P = ZOO_SMOKE_PROMPTS
+    inputs = serve.prefill_inputs(cfg, B, P, g, "cuda")
+    attn_layers = sum(k in ("attn", "local_attn", "enc_attn") for k in cfg.layer_kinds())
+    moe = cfg.moe is not None
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        bound = (XLSTM_BF16_PER_LAYER * cfg.num_layers if cfg.family == "ssm"
+                 else 5e-2)
+        rec = {"cuda": [], "cpu": []}
+        caches = {dev: (transformer.cache_init(cfg, B, P + 8, dev, dtype=dtype)
+                        if cfg.supports_decode else None) for dev in ("cuda", "cpu")}
+        steps = [("prefill", None)] + ([("decode", i) for i in range(4)]
+                                       if cfg.supports_decode else [])
+        worst, exempt = 0.0, 0
+        for kind, i in steps:
+            logits = {}
+            for dev in ("cuda", "cpu"):
+                ctx = _recorded_routes() if moe else contextlib.nullcontext([])
+                with ctx as calls:
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                        reset_launches()
+                    if kind == "prefill":
+                        batch = {k: v.to(dev) for k, v in inputs.items()}
+                        lg, _ = transformer.prefill(params[dev], cfg, batch, caches[dev],
+                                                    dtype=dtype)
+                    else:
+                        tok = inputs["tokens"][:, -1:].to(dev)
+                        lg, _ = transformer.decode_step(params[dev], cfg, tok,
+                                                        caches[dev], P + i, dtype=dtype)
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                        counted = dict(LAUNCHES)
+                    rec[dev] = list(calls)
+                logits[dev] = lg.cpu()
+            if kind == "prefill":
+                simt = counted.get("flash_attention", 0) - counted.get(
+                    "flash_attention_sm90", 0)
+                if simt != attn_layers or counted.get("flash_attention_sm90", 0):
+                    fail(f"smoke {arch} {name} prefill launched {counted}, not "
+                         f"{attn_layers} simt flash launches")
+                report[name] = counted
+            elif sum(counted.values()):
+                fail(f"smoke {arch} decode launched {counted}: decode is plain")
+            if moe and _route_flip(rec["cuda"], rec["cpu"], name):
+                exempt += 1
+                continue
+            gap, scale = _scale_gap(torch, logits["cuda"], logits["cpu"])
+            ok = (torch.allclose(logits["cuda"], logits["cpu"], rtol=1e-4, atol=1e-4)
+                  if dtype == torch.float32 else gap <= bound * scale)
+            if not ok:
+                fail(f"smoke {arch} {name} {kind} logits differ between card and "
+                     f"CPU: max |diff| {gap:.3e} on logits up to {scale:.3f}")
+            worst = max(worst, gap / scale)
+        print(f"zoo smoke {arch} card vs CPU ({name}, prefill P={P}"
+              + (" + 4 decode steps" if cfg.supports_decode else ", encoder")
+              + f"): worst |diff| {worst:.3e} of the logits' scale (limit "
+              f"{1e-4 if dtype == torch.float32 else bound}); steps exempt for a "
+              f"routing near tie: {exempt}; prefill launches "
+              f"{json.dumps(report[name], sort_keys=True)}")
+    return report["float32"].get("flash_attention", 0)
+
+
+def _profile_window(torch, arch, fn):
+    """One call of ``fn`` under the profiler: wall, device busy and idle
+    share, the flash kernels' device time, the device time each of the
+    arch's ``ZOO_RANGES`` spans (their functions wrapped in a
+    ``record_function`` range for the window), and the top device ops."""
+    import importlib
+    from torch.profiler import record_function
+    wrapped = []
+    for mod_name, fn_name in ZOO_RANGES.get(arch, ()):
+        mod = importlib.import_module(f"repro_torch.models.{mod_name}")
+        orig = getattr(mod, fn_name)
+
+        def ranged(*a, _orig=orig, _label=f"{mod_name}.{fn_name}", **kw):
+            with record_function(_label):
+                return _orig(*a, **kw)
+
+        setattr(mod, fn_name, ranged)
+        wrapped.append((mod, fn_name, orig))
+    try:
+        torch.cuda.synchronize()
+        with profiled() as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for mod, fn_name, orig in wrapped:
+            setattr(mod, fn_name, orig)
+    # a record_function range also shows on the card as an annotation that
+    # spans its kernels (graph replays included): its device seconds, read
+    # apart from the kernels' busy time
+    labels = {f"{m}.{f}" for m, f in ZOO_RANGES.get(arch, ())}
+    by_name, ranges = {}, {}
+    for e in measured_events(prof):
+        into = ranges if e.name in labels else by_name
+        into[e.name] = into.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+    busy = sum(by_name.values())
+    flash = sum(t for n, t in by_name.items() if any(sym in n for sym in FLASH_SYMBOLS))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(wall=wall, busy=busy, idle=1 - busy / wall if wall else 0.0,
+                flash_s=flash, ranges=ranges,
+                top=[(n[:80], sec) for n, sec in top])
+
+
+def _consistency(torch, arch, cfg, weights, inputs):
+    """Prefill P - 1 tokens, decode token P - 1, against a prefill of all P
+    (tests/test_models.py's check): bf16 within CONSISTENCY_TOL of the
+    logits' scale. MoE runs at a dropless capacity (E / k), as the JAX
+    smoke config's 4.0 does: the flat decode row drops pairs by design at
+    the full config's 1.25 (capacity 1 for dbrx at B 2), where the
+    prefill's rows do not. xLSTM as the JAX test runs it: fp32
+    activations, 0.06 a layer, a prefill of all P (a whole number of
+    mLSTM chunks) and one more token decoded against a prefill of P + 1:
+    the reference's chunkwise mLSTM leaves another state after a prefill
+    that ends inside a chunk (ROADMAP.md §3), and the port keeps its
+    numbers."""
+    import dataclasses
+    from repro_torch.models import transformer
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    xlstm = cfg.family == "ssm"
+    dtype = torch.float32 if xlstm else torch.bfloat16
+    toks = inputs["tokens"]
+    if xlstm:
+        toks = torch.cat([toks, toks[:, :1]], dim=1)
+    B, P = toks.shape
+    head = dict(inputs, tokens=toks[:, :P - 1])
+    cache = transformer.cache_init(cfg, B, P + 1, "cuda")
+    _, cache = transformer.prefill(weights, cfg, head, cache, dtype=dtype)
+    logits_d, _ = transformer.decode_step(weights, cfg, toks[:, P - 1:], cache, P - 1,
+                                          dtype=dtype)
+    del cache
+    cache = transformer.cache_init(cfg, B, P + 1, "cuda")
+    want, _ = transformer.prefill(weights, cfg, dict(inputs, tokens=toks), cache,
+                                  dtype=dtype)
+    del cache
+    gap, scale = _scale_gap(torch, logits_d, want)
+    agree = float((logits_d.argmax(-1) == want.argmax(-1)).float().mean())
+    if xlstm:
+        limit = XLSTM_CONSISTENCY_PER_LAYER * cfg.num_layers
+        diff = (logits_d - want).abs()
+        ok = (bool((diff <= limit + 0.1 * want.abs()).all())
+              and float(diff.mean()) < 0.015 * cfg.num_layers and agree > 0.95)
+        what = (f"fp32, atol {limit:.2f} + rtol 0.1, mean < "
+                f"{0.015 * cfg.num_layers:.3f}, argmax agreement > 0.95")
+    else:
+        ok = gap <= CONSISTENCY_TOL * scale
+        what = f"bf16, {CONSISTENCY_TOL} of the scale"
+    print(f"zoo {arch} prefill-then-decode consistency (prefill {P - 1}, decode "
+          f"position {P - 1}): max |decode - prefill| {gap:.4f} on logits up to "
+          f"{scale:.4f} ({gap / scale:.4f} of the scale; {what}), argmax "
+          f"agreement {agree:.2f}")
+    if not ok:
+        fail(f"zoo {arch}: prefill-then-decode logits disagree")
+    return dict(gap=gap, scale=scale, agree=agree)
+
+
+def _zoo_full(torch, arch, depth, B, P):
+    """Phase 15b for one arch: ``serve.serve`` at full width (bf16 weights
+    drawn leaf by leaf), counted; then prefill-then-decode consistency and
+    one profiled prefill (and the decode steps)."""
+    import dataclasses
+    import gc
+    from repro_torch import serve
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    decode = cfg.supports_decode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # what earlier phases left
+    reset_launches()
+    out = serve.serve(cfg, B, P, ZOO_DECODE + 1, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    sec = out["seconds"]
+    params = transformer.param_count(out["weights"])
+    sm90 = launches.get("flash_attention_sm90", 0)
+    simt = launches.get("flash_attention", 0) - sm90
+    if (simt, sm90) != ZOO_FLASH[arch]:
+        fail(f"zoo {arch}: flash launches simt {simt}, sm90 {sm90}; expected "
+             f"{ZOO_FLASH[arch]} (one a prefill attention layer)")
+    finite = all(bool(torch.isfinite(out[k]).all()) for k in ("prefill_logits", "logits"))
+    if not finite:
+        fail(f"zoo {arch}: logits are not finite")
+    row = dict(arch=arch, layers=cfg.num_layers, params=params, batch=B, prompt=P,
+               init_s=sec["init"], prefill_s=sec["prefill"],
+               decode_ms_per_token=(sec["decode"] / ZOO_DECODE * 1e3 if decode else None),
+               peak_gib=peak / 2**30, flash_simt=simt, flash_sm90=sm90,
+               launches=launches, finite=finite)
+    if decode:
+        row["consistency"] = _consistency(torch, arch, cfg, out["weights"], out["inputs"])
+    weights, inputs = out["weights"], out["inputs"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = transformer.cache_init(cfg, B, P + ZOO_DECODE, "cuda") if decode else None
+    state = {}
+
+    def prefill():
+        state["logits"], _ = transformer.prefill(weights, cfg, inputs, cache)
+
+    row["profile_prefill"] = _profile_window(torch, arch, prefill)
+    if decode:
+        def steps():
+            tok = state["logits"].argmax(-1)[:, None]
+            for i in range(ZOO_DECODE):
+                logits, _ = transformer.decode_step(weights, cfg, tok, cache, P + i)
+                tok = logits.argmax(-1)[:, None]
+
+        row["profile_decode"] = _profile_window(torch, "decode", steps)
+    pp = row["profile_prefill"]
+    print(f"zoo {arch} (depth {cfg.num_layers}, {params / 1e9:.3f} B params, bf16 "
+          f"weights; B {B} x P {P}{f' + {ZOO_DECODE} decode' if decode else ', encoder forward'}):"
+          f" init {sec['init']:.3f} s, prefill {sec['prefill']:.4f} s, "
+          + (f"decode {row['decode_ms_per_token']:.3f} ms/token, " if decode else "")
+          + f"peak {row['peak_gib']:.3f} GiB (above the {base / 2**30:.3f} GiB "
+          f"allocated before it), flash simt {simt} / sm90 {sm90}, "
+          f"logits finite {finite}; profiled prefill: wall {pp['wall']:.4f} s, busy "
+          f"{pp['busy']:.4f} s, idle share {pp['idle']:.4f}, flash {pp['flash_s']:.4f} s"
+          + "".join(f", {k} {v:.4f} s" for k, v in sorted(pp["ranges"].items()))
+          + (f"; profiled decode idle share {row['profile_decode']['idle']:.4f}"
+             if decode else ""))
+    for n, t in pp["top"]:
+        print(f"  device {t:.4f} s ({t / pp['busy']:.3f} of busy)  {n}")
+    del weights, inputs, cache, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def time_slstm(torch):
+    """xlstm-125m's sLSTM layer prefill at full width, B 2 x S 2048: the
+    route the prefill takes (a captured CUDA graph a GRAPH_STEPS steps)
+    against the eager loop that training takes, bitwise, each one layer
+    call timed on the host clock after a synchronize; the eager loop's
+    device kernels a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm
+    cfg = get_config("xlstm-125m")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    p = xlstm.slstm_init(g, cfg, "cuda")
+    x = torch.randn((2, 2048, cfg.d_model), generator=g, device="cuda").to(torch.bfloat16)
+
+    def eager():
+        hs, _ = xlstm._slstm_steps(p, cfg, xlstm.slstm_state_init(cfg, 2, "cuda"),
+                                   x.float() @ p["w"])
+        return xlstm._slstm_out(p, hs, x.dtype)
+
+    walls = {}
+    for name, fn in (("graph", lambda: xlstm.slstm_apply(p, cfg, x)[0]), ("eager", eager)):
+        fn()                                   # the graph's capture, warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0, out)
+    if not torch.equal(walls["graph"][1], walls["eager"][1]):
+        fail("sLSTM: the CUDA-graph route differs from the eager loop")
+    with profiled() as prof:
+        hs, _ = xlstm._slstm_steps(p, cfg, xlstm.slstm_state_init(cfg, 2, "cuda"),
+                                   x[:, :16].float() @ p["w"])
+        torch.cuda.synchronize()
+    kernels = len(measured_events(prof)) / 16
+    graph_s, eager_s = walls["graph"][0], walls["eager"][0]
+    print(f"sLSTM layer (xlstm-125m, B 2 x S 2048): graph route {graph_s:.4f} s a "
+          f"layer call ({graph_s / 2048 * 1e6:.1f} us a step), eager loop "
+          f"{eager_s:.4f} s ({eager_s / 2048 * 1e6:.1f} us a step, ~{kernels:.1f} "
+          f"device kernels a step); bitwise equal")
+    return dict(graph_s=graph_s, eager_s=eager_s, kernels_a_step=kernels)
+
+
+def run_zoo_train(torch):
+    """Phase 15c: ``python -m repro_torch.launch.train`` with its default
+    arch (xlstm-125m, full config), 3 steps at B 2 x S 1024."""
+    import math
+    from repro_torch.launch import train as launch_train
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, history = launch_train.main(ZOO_TRAIN_ARGS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    args = launch_train.parse_args(ZOO_TRAIN_ARGS)
+    after_first = sum(h["seconds"] for h in history[1:]) / (len(history) - 1)
+    print(f"zoo train (python -m repro_torch.launch.train {' '.join(ZOO_TRAIN_ARGS)}: "
+          f"{args.arch}, full config): losses "
+          f"{[round(h['loss'], 5) for h in history]}, {history[0]['seconds']:.3f} s "
+          f"the first step, {after_first:.3f} s a step after it, peak "
+          f"{peak / 2**30:.3f} GiB")
+    if args.arch != "xlstm-125m" or not all(math.isfinite(h["loss"]) for h in history):
+        fail(f"zoo train: arch {args.arch}, losses {[h['loss'] for h in history]}")
+    del state
+    torch.cuda.empty_cache()
+    return dict(arch=args.arch, losses=[h["loss"] for h in history],
+                first_step_s=history[0]["seconds"], step_s_after_first=after_first,
+                peak_gib=peak / 2**30)
+
+
+def run_zoo(torch):
+    """Phase 15: (d) rows 4h and 4r first (their plain versions need a few
+    GB), (a) every new arch at smoke size on the card against the CPU, (b)
+    each at full width, (c) the launcher's default arch trains."""
+    t_phase = time.perf_counter()
+    B, S, H, KH, Dh, window, causal = FLASH_HUBERT
+    rows = {"hubert": time_flash(torch, B, S, H, KH, Dh, window, causal=causal)["simt"]}
+    B, S, H, KH, Dh, window, causal = FLASH_RG_LOCAL
+    rows["rg_local"] = time_flash(torch, B, S, H, KH, Dh, window, plain_iters=2)["sm90"]
+    smoke = {arch: _zoo_smoke(torch, arch) for arch, *_ in ZOO}
+    t_full = time.perf_counter()
+    full = {}
+    for arch, depth, B, P in ZOO:
+        t0 = time.perf_counter()
+        full[arch] = _zoo_full(torch, arch, depth, B, P)
+        full[arch]["phase_s"] = time.perf_counter() - t0
+    t_full = time.perf_counter() - t_full
+    slstm = time_slstm(torch)
+    train = run_zoo_train(torch)
+    rows["hubert"]["launches"] = full["hubert-xlarge"]["flash_simt"]
+    rows["rg_local"]["launches"] = full["recurrentgemma-2b"]["flash_sm90"]
+    print(f"phase 15 took {time.perf_counter() - t_phase:.3f} s (15b {t_full:.3f} s)")
+    return dict(rows=rows, smoke=smoke, full=full, slstm=slstm, train=train)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2775,7 +3234,14 @@ def main() -> int:
     print("lm: " + json.dumps({k: v for k, v in lm.items() if k != "check"},
                               sort_keys=True, default=str))
 
-    # phase 15: report
+    # phase 15: the rest of the LM zoo — rows 4h and 4r timed, every new arch
+    # at smoke size card vs CPU, each at full width on the card, the
+    # launcher's default arch (xlstm-125m) trains
+    zoo = run_zoo(torch)
+    print("zoo: " + json.dumps({k: v for k, v in zoo.items() if k != "rows"},
+                               sort_keys=True, default=str))
+
+    # phase 16: report
     kernels = []
     for kname, src, replaces, err in (
             ("quantize", "src/repro_torch/csrc/quantize.cu",
@@ -2824,6 +3290,21 @@ def main() -> int:
                         **{k: v for k, v in row.items() if k not in (
                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                             "launches", "max_abs_err")}})
+    # the zoo's launch sites (phase 15): the simt kernel at hubert-xlarge's
+    # encoder (Dh 80, bidirectional) and the sm90 kernel at recurrentgemma's
+    # local layers (Dh 256, KV 1, window 2048)
+    for kname, site, src, row in (
+            ("flash_attention", "hubert_encoder", "src/repro_torch/csrc/flash_attention.cu",
+             zoo["rows"]["hubert"]),
+            ("flash_attention_sm90", "recurrentgemma_local",
+             "src/repro_torch/csrc/flash_attention_sm90.cu", zoo["rows"]["rg_local"])):
+        kernels.append({"name": f"{kname}@{site}", "route": "cuda", "source": src,
+                        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:82",
+                        "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+                        "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"], "call_ms": row["call_ms"],
+                        "shape": row["shape"], "timing": row["timing"]})
     f2 = times["wfedavg@f2"]
     print("wfedavg at f2.w: " + json.dumps(f2, sort_keys=True))
     print("flash at gemma3 local heads: " + json.dumps(

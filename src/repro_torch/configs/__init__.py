@@ -1,6 +1,6 @@
 """Model configurations used by the port: LeNet-5 for the §VI federation
-(``lenet_dfl``) and the language models the port serves, with the JAX
-package's ``get_config(arch_id)`` / ``smoke_config(arch_id)``."""
+(``lenet_dfl``) and the ten language models of the JAX package's zoo, with
+its ``get_config(arch_id)`` / ``smoke_config(arch_id)``."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,25 +14,24 @@ from repro_torch.configs.base import (  # noqa: F401
     cell_status,
 )
 
-# arch-id -> module path; only the architectures the port runs so far
+# arch-id -> module path (one module per architecture), in the JAX order
 _REGISTRY = {
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
     "gemma3-12b": "repro_torch.configs.gemma3_12b",
     "llama3-8b": "repro_torch.configs.llama3_8b",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick_400b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
 }
 
 ARCH_IDS = tuple(_REGISTRY)
-# the JAX package's other architectures: their layer kinds and frontends
-# come with ROADMAP.md queue 1, 'LM zoo: the other layer kinds and frontends'
-UNPORTED = ("chatglm3-6b", "command-r-35b", "dbrx-132b", "hubert-xlarge",
-            "llama4-maverick-400b-a17b", "llava-next-mistral-7b",
-            "recurrentgemma-2b", "xlstm-125m")
-_LAYERS_ITEM = "ROADMAP.md queue 1, 'LM zoo: the other layer kinds and frontends'"
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id in UNPORTED:
-        raise NotImplementedError(f"arch {arch_id!r} is not ported yet: "
-                                  f"{_LAYERS_ITEM}")
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
     return importlib.import_module(_REGISTRY[arch_id]).CONFIG

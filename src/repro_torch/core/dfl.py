@@ -97,10 +97,19 @@ def make_lm_eval_fn(cfg: ArchConfig):
 
 def val_batch_specs(cfg: ArchConfig, dfl: DFLConfig, fed_size: int):
     """(shape, dtype) of the federation's validation microbatches, (F, b, s)
-    a field (token models)."""
-    transformer.check_supported(cfg)
-    shape = (fed_size, dfl.val_rows, dfl.val_seq)
-    return {"tokens": (shape, torch.int32), "labels": (shape, torch.int32)}
+    a field: tokens and labels, or for the audio frontend frame embeddings
+    (F, b, s, d_model), labels and a loss mask; the vision frontend adds
+    patch embeddings (F, b, num_patch_tokens, d_model)."""
+    b, s = dfl.val_rows, dfl.val_seq
+    shape = (fed_size, b, s)
+    if cfg.frontend == "audio":
+        return {"frame_embeds": ((*shape, cfg.d_model), torch.bfloat16),
+                "labels": (shape, torch.int32), "loss_mask": (shape, torch.float32)}
+    out = {"tokens": (shape, torch.int32), "labels": (shape, torch.int32)}
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = ((fed_size, b, cfg.num_patch_tokens, cfg.d_model),
+                               torch.bfloat16)
+    return out
 
 
 def init_federation(cfg: ArchConfig, fed_size: int, generator, opt=None,

@@ -26,6 +26,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -73,6 +74,25 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def model_batch(cfg, np_batch, seed):
+    """The pipeline's tokens and labels with the inputs of the config's
+    frontend stub drawn from ``seed`` (``repro/train/step.py``'s input
+    specs): an audio model takes (B, S, d_model) frame embeddings in place
+    of the tokens and a loss mask; a vision model also takes
+    (B, num_patch_tokens, d_model) patch embeddings over its first
+    positions."""
+    if cfg.frontend is None:
+        return np_batch
+    rng = np.random.RandomState(seed % (2 ** 31 - 1))
+    B, S = np_batch["tokens"].shape
+    if cfg.frontend == "audio":
+        return {"frame_embeds": rng.standard_normal((B, S, cfg.d_model)).astype(np.float32),
+                "labels": np_batch["labels"],
+                "loss_mask": np.ones((B, S), np.float32)}
+    pe = rng.standard_normal((B, cfg.num_patch_tokens, cfg.d_model)) / np.sqrt(cfg.d_model)
+    return dict(np_batch, patch_embeds=pe.astype(np.float32))
+
+
 def _batch(np_batch, dev):
     return {k: torch.as_tensor(v, device=dev) for k, v in np_batch.items()}
 
@@ -97,7 +117,8 @@ def run_plain(args, cfg, dev):
     history = []
     for step in range(start, args.steps):
         t0 = time.perf_counter()
-        state, metrics = ts(state, _batch(pipe.batch_at(step), dev))
+        state, metrics = ts(state, _batch(model_batch(cfg, pipe.batch_at(step), step),
+                                          dev))
         history.append(dict(step=step, **{k: float(v) for k, v in metrics.items()},
                             seconds=time.perf_counter() - t0))
         if step % 5 == 0 or step == args.steps - 1:
@@ -108,10 +129,12 @@ def run_plain(args, cfg, dev):
     return state, history
 
 
-def _node_batches(pipe, step, local_steps, node, dev):
+def _node_batches(cfg, pipe, step, local_steps, node, dev):
     """Node ``node``'s (H, B, S) batches of round ``step``:
-    ``pipe.fed_batches(step, local_steps)[node]``, drawn for this node only."""
-    bs = [pipe.batch_at(step * local_steps + h, node=node)
+    ``pipe.fed_batches(step, local_steps)[node]``, drawn for this node only,
+    with its frontend's inputs (``model_batch``)."""
+    bs = [model_batch(cfg, pipe.batch_at(step * local_steps + h, node=node),
+                      (step * local_steps + h) * 131 + node)
           for h in range(local_steps)]
     return {k: torch.stack([torch.as_tensor(b[k]) for b in bs]).to(dev)
             for k in bs[0]}
@@ -166,9 +189,10 @@ def _dfl_rank(rank, dev, args, cfg):
         me = ring.dense_rank(rank)
         gossip_round = get_round(f)
         t0 = time.perf_counter()
-        state, metrics = local(state, _node_batches(pipe, rnd, args.local_steps,
+        state, metrics = local(state, _node_batches(cfg, pipe, rnd, args.local_steps,
                                                     me, dev))
-        val = pipe.batch_at(10_000 + rnd, node=me)
+        val = model_batch(cfg, pipe.batch_at(10_000 + rnd, node=me),
+                          (10_000 + rnd) * 131 + me)
         vb = {k: torch.as_tensor(v[: max(2, args.batch // 2)], device=dev)
               for k, v in val.items()}
         _sync(dev)

@@ -10,16 +10,22 @@ layer of the unit), and ``num_layers % unit_len`` trailing layers in
 ``lax.scan``.
 
 Entry points:
-    init(generator, cfg, device)                      -> params
+    init(generator, cfg, device, dtype=None)          -> params
     train_loss(params, cfg, batch)                    -> (loss, metrics)
     cache_init(cfg, batch, max_seq, device)           -> KV cache
     prefill(params, cfg, batch, cache)                -> (last_logits, cache)
     decode_step(params, cfg, tokens, cache, position) -> (logits, cache)
 
-Caches are written in place: ``prefill`` and ``decode_step`` return the
-cache they were given. Attention layers (global, local, encoder) are
-ported; the other layer kinds, MoE FFNs and the modality frontends raise
-``NotImplementedError``.
+Every layer kind of the JAX package runs: attention (global, local,
+encoder), RG-LRU (``models.rglru``), mLSTM and sLSTM (``models.xlstm``,
+blocks without norm2 and FFN), dense and MoE FFNs (``models.moe``, whose
+per-layer load-balancing aux is summed over the stack), and the two
+modality frontend stubs: ``frontend="audio"`` takes ``frame_embeds``
+(B, S, d) in place of tokens, ``frontend="vision"`` writes
+``patch_embeds`` over positions [0, num_patch_tokens), and
+``encoder_only`` adds learned positions ``pos[:S]``. Caches are written
+in place: ``prefill`` and ``decode_step`` return the cache they were
+given.
 
 Rematerialization (``cfg.remat``, the JAX package's ``jax.checkpoint`` of
 each unit): under autograd, ``"full"`` runs each unit through
@@ -40,12 +46,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch import tree
-from repro_torch.configs.base import ATTN, ENC_ATTN, LOCAL_ATTN
+from repro_torch.configs.base import ATTN, ENC_ATTN, LOCAL_ATTN, MLSTM, RGLRU, SLSTM
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import xlstm as xlstm_lib
 
 _ATTN_KINDS = (ATTN, LOCAL_ATTN, ENC_ATTN)
-LAYERS_ITEM = "ROADMAP.md queue 1, 'LM zoo: the other layer kinds and frontends'"
+_XLSTM_KINDS = (MLSTM, SLSTM)     # blocks that carry their own FFN / gating
 REMAT_ITEM = "ROADMAP.md queue 1, 'LM training', remat=\"dots\""
 LOSS_CHUNK = 2048  # vocab-projection chunk (tokens) to bound logits memory
 
@@ -65,86 +74,137 @@ def unit_layout(cfg) -> tuple[int, int, list[tuple[str, bool]]]:
     return cfg.num_layers // ul, cfg.num_layers % ul, entries
 
 
-def check_supported(cfg) -> None:
-    """Raise for what the port does not run yet."""
-    missing = sorted({k for k in cfg.block_pattern if k not in _ATTN_KINDS})
-    if missing:
-        raise NotImplementedError(f"layer kinds {missing} are not ported yet: "
-                                  f"{LAYERS_ITEM}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE FFNs are not ported yet: {LAYERS_ITEM}")
-    if cfg.frontend is not None or cfg.encoder_only:
-        raise NotImplementedError(
-            f"the {cfg.frontend or 'encoder'} frontend is not ported yet: "
-            f"{LAYERS_ITEM}")
+# ------------------------------------------------------------- weight casts
+def _cast_at_use(path) -> bool:
+    """Whether the JAX forward casts the leaf at ``path`` (its dict keys,
+    outermost first) to the activation dtype at every use: dense weights
+    (``w``, but for sLSTM's raw input matrix, used in fp32), embedding
+    tables, learned positions, RG-LRU's conv taps and the MoE expert
+    stacks (rounded to bf16 at use, which storing in bf16 gives exactly).
+    RG-LRU's w_r / w_i, the xLSTM matrices, norms and biases are left
+    alone: the first two are used in fp32 whatever the activation dtype."""
+    key, parent = path[-1], (path[-2] if len(path) > 1 else None)
+    if key in ("table", "pos", "conv_w"):
+        return True
+    if key == "w":
+        return parent != "mix"
+    return key in moe_lib.EXPERT_STACKS and parent == "ffn"
 
 
-# ---------------------------------------------------------------------- init
-def _unit_init(generator, cfg, entries, device, lead):
-    layers = []
-    for _ in entries:
-        layers.append({
-            "norm1": L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, device, lead),
-            "mix": attn.attn_init(generator, cfg, device, lead),
-            "norm2": L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, device, lead),
-            "ffn": L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.use_bias,
-                              device, lead),
-        })
-    return tuple(layers)
-
-
-def init(generator, cfg, device="cuda"):
-    """Random fp32 params drawn from ``generator`` (a ``torch.Generator`` on
-    ``device``), in the JAX package's tree layout (its init distributions;
-    not its numbers)."""
-    dev = device_lib.resolve(device)
-    check_supported(cfg)
-    n_units, n_rest, entries = unit_layout(cfg)
-    params: dict[str, Any] = {
-        "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dev)}
-    if not cfg.tie_embeddings:
-        params["unembed"] = L.embed_init(generator, cfg.vocab_size, cfg.d_model, dev)
-    params["final_norm"] = L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, dev)
-    if n_units:
-        params["units"] = _unit_init(generator, cfg, entries, dev, (n_units,))
-    if n_rest:
-        params["rest"] = _unit_init(generator, cfg, entries[:n_rest], dev, ())
-    return params
+def _cast(t, dtype, path=()):
+    if isinstance(t, dict):
+        return {k: _cast(v, dtype, (*path, k)) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_cast(v, dtype, path) for v in t)
+    return t.to(dtype) if path and _cast_at_use(path) else t
 
 
 def cast_params(params, dtype):
-    """The weights (``w``) and embedding tables in ``dtype``; norms and biases
-    are shared as they are. Prefill and decode in ``dtype`` cast every
-    weight to it at use, so this one-off copy gives the same numbers and
-    spares the casts."""
-    def walk(t, key=None):
-        if isinstance(t, dict):
-            return {k: walk(v, k) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)(walk(v, key) for v in t)
-        return t.to(dtype) if key in ("w", "table") else t
+    """The leaves the forward casts at use (``_cast_at_use``) in ``dtype``;
+    the others are shared as they are. Prefill and decode in ``dtype``
+    cast each of those leaves to it at use, so this one-off copy gives the
+    same numbers and spares the casts."""
+    return _cast(params, dtype)
 
-    return walk(params)
+
+# ---------------------------------------------------------------------- init
+def _store(t, dtype, key):
+    """A freshly drawn subtree under ``key``, cast as ``cast_params`` would
+    (as it is when ``dtype`` is None)."""
+    return t if dtype is None else _cast(t, dtype, (key,))
+
+
+def _layer_init(generator, cfg, kind, is_moe, device, lead, dtype):
+    p = {"norm1": L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, device, lead)}
+    if kind in _ATTN_KINDS:
+        mix = attn.attn_init(generator, cfg, device, lead)
+    elif kind == RGLRU:
+        mix = rglru_lib.rglru_init(generator, cfg, device, lead)
+    elif kind == MLSTM:
+        mix = xlstm_lib.mlstm_init(generator, cfg, device, lead)
+    elif kind == SLSTM:
+        mix = xlstm_lib.slstm_init(generator, cfg, device, lead)
+    else:
+        raise ValueError(kind)
+    p["mix"] = _store(mix, dtype, "mix")
+    if kind not in _XLSTM_KINDS:
+        p["norm2"] = L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, device, lead)
+        if is_moe:
+            ffn = moe_lib.moe_init(generator, cfg, device, lead, dtype)
+        else:
+            ffn = L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.use_bias,
+                             device, lead)
+        p["ffn"] = _store(ffn, dtype, "ffn")
+    return p
+
+
+def init(generator, cfg, device="cuda", dtype=None):
+    """Random fp32 params drawn from ``generator`` (a ``torch.Generator`` on
+    ``device``), in the JAX package's tree layout (its init distributions;
+    not its numbers).
+
+    With ``dtype``, the leaves ``cast_params`` casts are stored in it as
+    they are drawn (the MoE expert stacks one by one, the rest a table, an
+    FFN or a temporal mix at a time): bitwise ``cast_params(init(
+    generator, cfg, device), dtype)`` from the same generator state,
+    without the fp32 model ever being whole (llama4-maverick's unit does
+    not fit one card in fp32)."""
+    dev = device_lib.resolve(device)
+    n_units, n_rest, entries = unit_layout(cfg)
+    params: dict[str, Any] = {
+        "embed": _store(L.embed_init(generator, cfg.vocab_size, cfg.d_model, dev),
+                        dtype, "embed")}
+    if not cfg.tie_embeddings:
+        params["unembed"] = _store(
+            L.embed_init(generator, cfg.vocab_size, cfg.d_model, dev), dtype, "unembed")
+    if cfg.encoder_only:  # learned absolute positions (conv-pos stub)
+        params["pos"] = _store(L.truncated_normal(
+            generator, (cfg.max_seq_len, cfg.d_model), 1.0, dev), dtype, "pos")
+    params["final_norm"] = L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, dev)
+    if n_units:
+        params["units"] = tuple(
+            _layer_init(generator, cfg, kind, is_moe, dev, (n_units,), dtype)
+            for kind, is_moe in entries)
+    if n_rest:
+        params["rest"] = tuple(
+            _layer_init(generator, cfg, kind, is_moe, dev, (), dtype)
+            for kind, is_moe in entries[:n_rest])
+    return params
 
 
 # --------------------------------------------------------------------- layers
-def _layer_apply(p, cfg, kind, h, positions, cache_entry):
-    """One layer, full-sequence mode. Returns h (the cache entry is filled
-    in place)."""
-    hn = L.norm_apply(p["norm1"], h, cfg.norm)
-    y, _ = attn.attn_apply(p["mix"], cfg, hn, positions, kind=kind,
-                           cache=cache_entry)
-    h = h + y
-    hn = L.norm_apply(p["norm2"], h, cfg.norm)
-    return h + L.mlp_apply(p["ffn"], hn)
+def _mix_apply(p, cfg, kind, hn, positions, cache_entry):
+    if kind in _ATTN_KINDS:
+        return attn.attn_apply(p, cfg, hn, positions, kind=kind, cache=cache_entry)[0]
+    if kind == RGLRU:
+        return rglru_lib.rglru_apply(p, cfg, hn, cache=cache_entry)[0]
+    if kind == MLSTM:
+        return xlstm_lib.mlstm_apply(p, cfg, hn, cache=cache_entry)[0]
+    return xlstm_lib.slstm_apply(p, cfg, hn, cache=cache_entry)[0]
 
 
-def _layer_decode(p, cfg, kind, h, position, cache_entry):
-    hn = L.norm_apply(p["norm1"], h, cfg.norm)
-    y, _ = attn.attn_decode(p["mix"], cfg, hn, position, cache_entry, kind=kind)
-    h = h + y
+def _mix_decode(p, cfg, kind, hn, position, cache_entry):
+    if kind in _ATTN_KINDS:
+        return attn.attn_decode(p, cfg, hn, position, cache_entry, kind=kind)[0]
+    if kind == RGLRU:
+        return rglru_lib.rglru_decode(p, cfg, hn, cache_entry)[0]
+    if kind == MLSTM:
+        return xlstm_lib.mlstm_decode(p, cfg, hn, cache_entry)[0]
+    return xlstm_lib.slstm_decode(p, cfg, hn, cache_entry)[0]
+
+
+def _layer(p, cfg, kind, is_moe, h, mix):
+    """One layer around its temporal mix ``mix(hn) -> y`` (the cache entry,
+    when there is one, filled in place). Returns (h, aux): the MoE FFN's
+    load-balancing loss, or None."""
+    h = h + mix(L.norm_apply(p["norm1"], h, cfg.norm))
+    if kind in _XLSTM_KINDS:
+        return h, None
     hn = L.norm_apply(p["norm2"], h, cfg.norm)
-    return h + L.mlp_apply(p["ffn"], hn)
+    if is_moe:
+        y, aux = moe_lib.moe_apply(p["ffn"], cfg, hn)
+        return h + y, aux
+    return h + L.mlp_apply(p["ffn"], hn), None
 
 
 def _remat(fn, cfg):
@@ -170,41 +230,64 @@ def _unit_params(stacked):
             for u in range(len(leaves[0]) if leaves else 0)]
 
 
+def _add(total, aux):
+    """total + aux, None standing for an exact 0 (no MoE layer yet): the
+    JAX scan's sums from 0 without a kernel launch for a dense stack."""
+    return aux if total is None else total if aux is None else total + aux
+
+
 def _stack_forward(params, cfg, h, positions, cache, decode_position=None):
-    """Run all layers; cache may be None. Returns h."""
+    """Run all layers; cache may be None. Returns (h, aux): aux the MoE
+    layers' load-balancing losses summed a unit at a time, as the JAX scan
+    carries it (None without MoE: an exact 0)."""
     n_units, n_rest, entries = unit_layout(cfg)
 
     def run(layer_params, layer_caches, h):
-        for i, (kind, _) in enumerate(entries[:len(layer_params)]):
-            ce = None if layer_caches is None else layer_caches[i]
+        aux_sum = None
+        for i, (kind, is_moe) in enumerate(entries[:len(layer_params)]):
+            p, ce = layer_params[i], None if layer_caches is None else layer_caches[i]
             if decode_position is not None:
-                h = _layer_decode(layer_params[i], cfg, kind, h, decode_position, ce)
+                mix = lambda hn: _mix_decode(p["mix"], cfg, kind, hn,
+                                             decode_position, ce)
             else:
-                h = _layer_apply(layer_params[i], cfg, kind, h, positions, ce)
-        return h
+                mix = lambda hn: _mix_apply(p["mix"], cfg, kind, hn, positions, ce)
+            h, aux = _layer(p, cfg, kind, is_moe, h, mix)
+            aux_sum = _add(aux_sum, aux)
+        return h, aux_sum
 
+    aux_total = None
     if n_units:
         units = _unit_params(params["units"])
         caches = (None if cache is None
                   else _unit_params(cache["units"]))
         for u in range(n_units):
             if decode_position is None and cache is None:
-                h = _remat(lambda h, u=u: run(units[u], None, h), cfg)(h)
+                h, aux = _remat(lambda h, u=u: run(units[u], None, h), cfg)(h)
             else:
-                h = run(units[u], caches[u], h)
+                h, aux = run(units[u], caches[u], h)
+            aux_total = _add(aux_total, aux)
     if n_rest:
-        h = run(params["rest"], None if cache is None else cache["rest"], h)
-    return h
+        h, aux = run(params["rest"], None if cache is None else cache["rest"], h)
+        aux_total = _add(aux_total, aux)
+    return h, aux_total
 
 
 # -------------------------------------------------------------------- embedding
 def _embed_inputs(params, cfg, batch, dtype=torch.bfloat16):
-    """Token embedding. Returns (h, positions)."""
-    check_supported(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    h = L.embed_apply(params["embed"], tokens, dtype)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    """Token / frontend-stub embedding. Returns (h, positions)."""
+    if cfg.frontend == "audio":
+        h = batch["frame_embeds"].to(dtype)
+        B, S = h.shape[:2]
+    else:
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        h = L.embed_apply(params["embed"], tokens, dtype)
+        if cfg.frontend == "vision" and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(dtype)
+            h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
+    if cfg.encoder_only:
+        h = h + params["pos"][:S].to(dtype)
+    positions = torch.arange(S, device=h.device).expand(B, S)
     return h, positions
 
 
@@ -215,12 +298,16 @@ def _unembed(params, cfg, h):
 
 # ------------------------------------------------------------------ entrypoints
 def train_loss(params, cfg, batch):
-    """Next-token cross entropy in bf16 activations. ``batch``: tokens and
-    labels (B, S), optional loss_mask. Returns (loss, metrics) with metrics
-    ``loss``, ``accuracy`` (token top-1) and ``aux`` (0: no MoE layers)."""
+    """Next-token (or masked-unit) cross entropy in bf16 activations.
+    ``batch``: tokens (or, for the audio frontend, frame_embeds) and labels
+    (B, S), optional loss_mask and patch_embeds. Returns (loss, metrics):
+    loss is the cross entropy plus 0.01 times the MoE aux; metrics
+    ``loss`` (the cross entropy), ``accuracy`` (token top-1) and ``aux``."""
     h, positions = _embed_inputs(params, cfg, batch)
-    h = _stack_forward(params, cfg, h, positions, None)
+    h, aux = _stack_forward(params, cfg, h, positions, None)
     h = L.norm_apply(params["final_norm"], h, cfg.norm)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = zero if aux is None else aux
 
     labels = batch["labels"]
     mask = batch.get("loss_mask")
@@ -240,7 +327,6 @@ def train_loss(params, cfg, batch):
         loss_fn = lambda *a: checkpoint(chunk_loss, *a, use_reentrant=False)
     else:
         loss_fn = chunk_loss
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
     tot, totacc, totw = zero, zero, zero
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
@@ -249,43 +335,57 @@ def train_loss(params, cfg, batch):
         nll, acc = loss_fn(h[:, sl], labels[:, sl], ms)
         tot, totacc, totw = tot + nll, totacc + acc, totw + ms.sum()
     totw = torch.clamp_min(totw, 1.0)
-    aux = zero
     loss = tot / totw + 0.01 * aux
     return loss, {"loss": (tot / totw).detach(), "accuracy": totacc / totw,
-                  "aux": aux}
+                  "aux": aux.detach()}
 
 
 def prefill(params, cfg, batch, cache, dtype=torch.bfloat16):
-    """Process the prompt, fill the cache, return last-token logits (fp32).
+    """Process the prompt (or, encoder-only, the frames), fill the cache
+    (None: no cache), return last-position logits (fp32).
     ``dtype`` is the activation/residual dtype (blocks compute in fp32
     internally and cast back to it; fp32 here keeps the whole stack fp32 —
     the numerics oracle for prefill-vs-decode consistency checks)."""
     h, positions = _embed_inputs(params, cfg, batch, dtype=dtype)
-    h = _stack_forward(params, cfg, h, positions, cache)
+    h, _ = _stack_forward(params, cfg, h, positions, cache)
     h_last = L.norm_apply(params["final_norm"], h[:, -1:], cfg.norm)
     return _unembed(params, cfg, h_last)[:, 0], cache
 
 
 def decode_step(params, cfg, tokens, cache, position: int, dtype=torch.bfloat16):
     """One decode step. tokens (B,1); position an int, the same for every row."""
-    check_supported(cfg)
+    if cfg.frontend == "audio":
+        raise ValueError("encoder-only arch has no decode step")
     h = L.embed_apply(params["embed"], tokens, dtype)
-    h = _stack_forward(params, cfg, h, None, cache, decode_position=position)
+    h, _ = _stack_forward(params, cfg, h, None, cache, decode_position=position)
     h = L.norm_apply(params["final_norm"], h, cfg.norm)
     return _unembed(params, cfg, h)[:, 0], cache
 
 
-# ------------------------------------------------------------------- KV caches
+# ------------------------------------------------------------------- caches
+def _entry_cache(cfg, kind, batch, max_seq, device, dtype, lead):
+    if kind in _ATTN_KINDS:
+        return attn.attn_cache_init(cfg, kind, batch, max_seq, device, dtype, lead)
+    if kind == RGLRU:
+        return rglru_lib.rglru_cache_init(cfg, batch, device, dtype, lead)
+    if kind == MLSTM:
+        return xlstm_lib.mlstm_state_init(cfg, batch, device, lead)
+    if kind == SLSTM:
+        return xlstm_lib.slstm_state_init(cfg, batch, device, lead)
+    raise ValueError(kind)
+
+
 def cache_init(cfg, batch, max_seq, device="cuda", dtype=torch.bfloat16):
-    """KV caches mirroring the unit/rest layout: ``{"units": (per layer of
-    the unit: {"k", "v"} stacked over n_units), "rest": (...) or None}``."""
+    """Caches mirroring the unit/rest layout: ``{"units": (per layer of the
+    unit: its entry stacked over n_units), "rest": (...) or None}``. An
+    entry is {"k", "v"} for attention (``dtype``), {"h" (fp32), "conv"
+    (``dtype``)} for RG-LRU, {"C", "n", "m"} for mLSTM and {"c", "n", "h",
+    "m"} for sLSTM (fp32)."""
     dev = device_lib.resolve(device)
-    check_supported(cfg)
     n_units, n_rest, entries = unit_layout(cfg)
-    units = tuple(attn.attn_cache_init(cfg, kind, batch, max_seq, dev, dtype,
-                                       lead=(n_units,))
+    units = tuple(_entry_cache(cfg, kind, batch, max_seq, dev, dtype, (n_units,))
                   for kind, _ in entries) if n_units else None
-    rest = tuple(attn.attn_cache_init(cfg, kind, batch, max_seq, dev, dtype)
+    rest = tuple(_entry_cache(cfg, kind, batch, max_seq, dev, dtype, ())
                  for kind, _ in entries[:n_rest]) if n_rest else None
     return {"units": units, "rest": rest}
 

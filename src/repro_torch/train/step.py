@@ -41,13 +41,15 @@ def make_optimizer(cfg: ArchConfig, total_steps: int = 100_000):
 def loss_and_grads(params, cfg, batch):
     """(loss, metrics, grads) of ``transformer.train_loss`` at ``params``
     (which it leaves as they are); the grads are fp32, shaped as the
-    params."""
+    params, and zero for a leaf the loss does not use (the token table of
+    an audio model, which takes frame embeddings), as JAX's are."""
     leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
     loss, metrics = transformer.train_loss(tree.unflatten(params, leaves), cfg,
                                            batch)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return loss.detach(), metrics, tree.unflatten(params, list(grads))
+    return loss.detach(), metrics, tree.unflatten(params, grads)
 
 
 def make_train_step(cfg: ArchConfig, opt: Optional[opt_lib.Optimizer] = None,

@@ -608,3 +608,90 @@ def test_train_launcher_defaults_to_the_card(cuda):
                                  "--batch", "2", "--seq", "64"])
     assert all(x.device.type == "cuda" for x in tree.leaves(state))
     assert len(history) == 3 and all(np.isfinite(h["loss"]) for h in history)
+
+
+ZOO_NEW = ("recurrentgemma-2b", "chatglm3-6b", "command-r-35b", "dbrx-132b",
+           "llama4-maverick-400b-a17b", "xlstm-125m", "hubert-xlarge",
+           "llava-next-mistral-7b")
+
+
+@pytest.mark.parametrize("arch", ZOO_NEW)
+def test_zoo_smoke_on_the_card_matches_the_cpu(cuda, arch):
+    """smoke_config(arch) from the same params on the card (the simt flash
+    kernel at Dh 16, one launch a prefill attention layer) and on the CPU
+    (plain): fp32 prefill of a ragged prompt and 4 decode steps within
+    rtol/atol 1e-4 (chip_smoke phase 15a's fp32 bound)."""
+    from repro_torch import convert, serve
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer
+    cfg = smoke_config(arch)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    params = {"cuda": transformer.init(g, cfg, "cuda")}
+    params["cpu"] = convert.params_from_jax(convert.params_to_numpy(params["cuda"]), "cpu")
+    inputs = serve.prefill_inputs(cfg, 2, 40, g, "cuda")
+    attn_layers = sum(k in ("attn", "local_attn", "enc_attn") for k in cfg.layer_kinds())
+    seqs = {}
+    for dev in ("cuda", "cpu"):
+        f32 = torch.float32
+        cache = (transformer.cache_init(cfg, 2, 48, dev, dtype=f32)
+                 if cfg.supports_decode else None)
+        reset_launches()
+        lg, cache = transformer.prefill(params[dev], cfg,
+                                        {k: v.to(dev) for k, v in inputs.items()},
+                                        cache, dtype=f32)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES["flash_attention"] == attn_layers
+            assert LAUNCHES["flash_attention_sm90"] == 0
+        seq = [lg.cpu()]
+        for i in range(4 if cfg.supports_decode else 0):
+            tok = inputs["tokens"][:, -1:].to(dev)
+            lg, cache = transformer.decode_step(params[dev], cfg, tok, cache, 40 + i,
+                                                dtype=f32)
+            seq.append(lg.cpu())
+        seqs[dev] = torch.stack(seq)
+    torch.testing.assert_close(seqs["cuda"], seqs["cpu"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b",
+                                  "xlstm-125m", "hubert-xlarge"])
+def test_leaf_by_leaf_bf16_init_on_the_card(cuda, arch):
+    """init(..., dtype=bf16) from a CUDA generator (Philox) is bitwise
+    cast_params(init(...), bf16) from the same state: the build that fits
+    llama4-maverick's unit on one card."""
+    from repro_torch import tree
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer
+    cfg = smoke_config(arch)
+    want = transformer.cast_params(
+        transformer.init(torch.Generator(device="cuda").manual_seed(3), cfg, "cuda"),
+        torch.bfloat16)
+    got = transformer.init(torch.Generator(device="cuda").manual_seed(3), cfg, "cuda",
+                           dtype=torch.bfloat16)
+    for a, b in zip(tree.leaves(got), tree.leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S,cached", [(130, False), (130, True), (64, True), (40, False)])
+def test_slstm_graph_route_is_the_eager_loop(cuda, S, cached):
+    """sLSTM prefill on the card replays a captured CUDA graph for each
+    run of GRAPH_STEPS steps: bitwise the eager loop (outputs and the
+    state it leaves), the remaining steps eager."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import xlstm
+    cfg = smoke_config("xlstm-125m")
+    g = torch.Generator(device="cuda").manual_seed(S)
+    p = xlstm.slstm_init(g, cfg, "cuda")
+    x = torch.randn((2, S, cfg.d_model), generator=g, device="cuda").to(torch.bfloat16)
+    caches = [xlstm.slstm_state_init(cfg, 2, "cuda") if cached else None for _ in range(2)]
+    if cached:      # a state an earlier segment left
+        for c in caches:
+            xlstm.slstm_apply(p, cfg, x[:, :5], cache=c)
+    y, _ = xlstm.slstm_apply(p, cfg, x, cache=caches[0])
+    st = caches[1] if cached else xlstm.slstm_state_init(cfg, 2, "cuda")
+    hs, last = xlstm._slstm_steps(p, cfg, st, x.float() @ p["w"])
+    assert torch.equal(y, xlstm._slstm_out(p, hs, x.dtype))
+    if cached:
+        for k in last:
+            assert torch.equal(caches[0][k], last[k])

@@ -205,8 +205,11 @@ def test_launcher_defaults_to_the_card_and_names_unported_archs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         t.main(["--arch", "llama3-8b", "--smoke", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="LM zoo"):
-        t.main(["--smoke", "--device", "cpu"])       # default arch xlstm-125m
+    # the default arch, xlstm-125m, trains (it raised before its layers were
+    # ported)
+    _, history = t.main(["--smoke", "--device", "cpu", "--steps", "2", "--batch", "2",
+                         "--seq", "32"])
+    assert len(history) == 2 and all(np.isfinite(h["loss"]) for h in history)
     args = t.parse_args([])
     assert (args.arch, args.device, args.backend, args.compress) == (
         "xlstm-125m", "cuda", None, None)
