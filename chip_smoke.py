@@ -24,7 +24,8 @@ prints its last line):
    weights (2.18e8 fp32 elements, bandwidth-bound); wfedavg within rtol/atol 1e-6 at N = 10 and
    D = 94 080 / 10 080 and on ragged and misaligned D; flash attention on
    llama3's and gemma3's local heads at S = 4096, a bidirectional, two
-   ragged (S 1000 and 4095), a KH = 1 and a KH = H case, each kernel
+   ragged (S 1000 and 4095), a KH = 1, a KH = H and a hubert (Dh 80,
+   bidirectional, S 1000) case, each kernel
    reached through the routing rule and its route read from the launch
    counters: the sm90 kernel (bf16 wgmma + TMA) in bf16 (rtol/atol 1.6e-2,
    one bf16 ulp), the simt kernel in fp32 (1e-5) and in bf16 on views
@@ -142,10 +143,14 @@ prints its last line):
    ``main`` with ``--dfl --fed 4 --fail-node 1@2 --rounds 4`` at
    ``smoke_config("llama3-8b")`` on cuda:0: F=4, then F=3 over the
    survivors;
-15. the rest of the LM zoo: (d) the simt flash kernel at hubert-xlarge's
-   encoder (B 2 x S 4096, H 16 = KH, Dh 80, bidirectional) and the sm90
-   kernel at recurrentgemma-2b's local layers (B 2 x S 4096, H 10, KH 1, Dh
-   256, window 2048), timed as phase 3 times the others; (a) each of
+15. the rest of the LM zoo: (d) both flash kernels at hubert-xlarge's
+   encoder (B 2 x S 4096, H 16 = KH, Dh 80, bidirectional; the sm90 kernel
+   on the tensors as made, the simt kernel on ``_simt_view`` copies) and
+   the sm90 kernel at recurrentgemma-2b's local layers (B 2 x S 4096, H 10,
+   KH 1, Dh 256, window 2048), timed as phase 3 times the others; hubert's
+   encoder at full width, depth 2, B 2 x S 4096 through the kernels against
+   the same forward under ``models.flash.plain_route()`` (within 5e-2 of
+   the output's scale, 2 sm90 launches, no simt); (a) each of
    recurrentgemma-2b, chatglm3-6b, command-r-35b, dbrx-132b,
    llama4-maverick, xlstm-125m, hubert-xlarge and llava-next at
    ``smoke_config`` from the same params on the card (the simt kernel at Dh
@@ -159,7 +164,7 @@ prints its last line):
    2048 + 8 decode steps (recurrentgemma P 4096, past its 2048 window;
    llama4 B 1; hubert B 2 x S 4096 frames, the encoder forward only),
    counted (the flash launches of one prefill: one a prefill attention
-   layer, sm90 at Dh 128 / 256, simt at hubert's Dh 80, none for xLSTM):
+   layer, sm90 at Dh 80 / 128 / 256, none for xLSTM):
    init, prefill and decode wall, peak memory, finite logits,
    prefill-then-decode consistency (bf16 within 0.08 of the scale; xLSTM
    in fp32 with tests/test_models.py's 0.06 a layer; MoE at a dropless
@@ -655,6 +660,7 @@ FLASH_CASES = (
     ("ragged S=4095", 1, 4095, 32, 8, 128, True, 0),
     ("KH=1 S=1024", 1, 1024, 8, 1, 128, True, 0),
     ("KH=H S=1024", 1, 1024, 8, 8, 128, True, 0),
+    ("hubert Dh=80 ragged S=1000", 2, 1000, 16, 16, 80, False, 0),
 )
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 1.6e-2}   # bf16: one bf16 ulp
 # the serving path's flash call: llama3-8b prefill, B 4 x P 4096; and a
@@ -742,9 +748,9 @@ def time_flash(torch, B, S, H, KH, Dh, window=0, dtype="bfloat16",
     """The flash kernels at one shape, each beside the bound, the plain
     version and one PyTorch call for the same function
     (scaled_dot_product_attention, timed here only; with a window it takes
-    an explicit boolean mask). In bf16 at an sm90 head dim the sm90 kernel
-    runs on the tensors as made and the simt kernel on ``_simt_view``
-    copies of the same values; at another head dim (hubert's 80) and in
+    an explicit boolean mask). In bf16 at an sm90 head dim (64, 80, 128,
+    256) the sm90 kernel runs on the tensors as made and the simt kernel on
+    ``_simt_view`` copies of the same values; at another head dim and in
     fp32 only the simt kernel takes them, as made. Each is held against
     the plain version first. Returns {route: row}."""
     from repro_torch.kernels.flash_attention import ops
@@ -2687,7 +2693,7 @@ ZOO_DECODE = 8
 # flash launches of one full-width prefill: (simt, sm90)
 ZOO_FLASH = {"chatglm3-6b": (0, 28), "command-r-35b": (0, 8), "dbrx-132b": (0, 2),
              "llama4-maverick-400b-a17b": (0, 2), "recurrentgemma-2b": (0, 8),
-             "xlstm-125m": (0, 0), "hubert-xlarge": (48, 0),
+             "xlstm-125m": (0, 0), "hubert-xlarge": (0, 48),
              "llava-next-mistral-7b": (0, 32)}
 ZOO_SMOKE_PROMPTS = (2, 40)
 # tests/test_torch_zoo.py's bounds: bf16 5e-2 of the logits' scale, xLSTM
@@ -2708,6 +2714,12 @@ ZOO_TRAIN_ARGS = ["--steps", "3", "--batch", "2", "--seq", "1024"]
 # rows 4h and 4r: (B, S, H, KH, Dh, window, causal)
 FLASH_HUBERT = (2, 4096, 16, 16, 80, 0, False)
 FLASH_RG_LOCAL = (2, 4096, 10, 1, 256, 2048, True)
+# hubert-xlarge's encoder through the kernels against the plain route:
+# (depth, B, S) at full width; bound on max |diff| over the output's scale
+# (tests/test_torch_zoo.py's bf16 bound: the sm90 kernel rounds p to bf16
+# before P.V, the plain version keeps it in fp32)
+HUBERT_CHECK = (2, 2, 4096)
+HUBERT_CHECK_TOL = 5e-2
 
 
 @contextlib.contextmanager
@@ -3071,13 +3083,72 @@ def run_zoo_train(torch):
                 peak_gib=peak / 2**30)
 
 
+def check_hubert_kernels_vs_plain(torch):
+    """Phase 15d's check: hubert-xlarge at full width and ``HUBERT_CHECK``'s
+    depth, bf16 weights and B x S frames from a seed: the encoder's output
+    (every position, after the final norm) through the kernels against the
+    same forward with the attention forced through the plain version
+    (``models.flash.plain_route()``), within ``HUBERT_CHECK_TOL`` of the
+    output's scale. The kernels' run launches the sm90 kernel once a layer
+    and the simt kernel never; the plain run launches nothing."""
+    import dataclasses
+    from repro_torch import serve
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import flash as flash_model
+    from repro_torch.models import layers, transformer
+    depth, B, S = HUBERT_CHECK
+    cfg = dataclasses.replace(get_config("hubert-xlarge"), num_layers=depth)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    weights = transformer.init(g, cfg, "cuda", dtype=torch.bfloat16)
+    inputs = serve.prefill_inputs(cfg, B, S, g, "cuda")
+
+    def encode():
+        with torch.no_grad():
+            h, positions = transformer._embed_inputs(weights, cfg, inputs)
+            h, _ = transformer._stack_forward(weights, cfg, h, positions, None)
+            return layers.norm_apply(weights["final_norm"], h, cfg.norm).float()
+
+    torch.cuda.synchronize()
+    reset_launches()
+    got = encode()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    reset_launches()
+    with flash_model.plain_route():
+        want = encode()
+    torch.cuda.synchronize()
+    sm90 = launches.get("flash_attention_sm90", 0)
+    if (launches.get("flash_attention", 0), sm90) != (depth, depth) or LAUNCHES:
+        fail(f"hubert kernels vs plain: launches {launches} through the kernels, "
+             f"{dict(LAUNCHES)} on the plain route")
+    gap, scale = _scale_gap(torch, got, want)
+    finite = bool(torch.isfinite(got).all())
+    print(f"hubert-xlarge encoder through the kernels vs the plain route (depth "
+          f"{depth}, full width, B {B} x S {S}, bf16): output {tuple(got.shape)}, "
+          f"max |diff| {gap:.4e} on values up to {scale:.4f} ({gap / scale:.4e} of "
+          f"the scale, limit {HUBERT_CHECK_TOL}), finite {finite}, sm90 launches "
+          f"{sm90}")
+    if not finite or gap > HUBERT_CHECK_TOL * scale:
+        fail("hubert-xlarge's encoder through the kernels disagrees with the plain route")
+    del weights, inputs, got, want
+    torch.cuda.empty_cache()
+    return dict(depth=depth, batch=B, seq=S, gap=gap, scale=scale,
+                rel=gap / scale, sm90_launches=sm90)
+
+
 def run_zoo(torch):
     """Phase 15: (d) rows 4h and 4r first (their plain versions need a few
-    GB), (a) every new arch at smoke size on the card against the CPU, (b)
-    each at full width, (c) the launcher's default arch trains."""
+    GB: hubert's sm90 row on the tensors as made, its simt row on
+    ``_simt_view`` copies) and hubert's encoder through the kernels against
+    the plain route, (a) every new arch at smoke size on the card against
+    the CPU, (b) each at full width, (c) the launcher's default arch
+    trains."""
     t_phase = time.perf_counter()
     B, S, H, KH, Dh, window, causal = FLASH_HUBERT
-    rows = {"hubert": time_flash(torch, B, S, H, KH, Dh, window, causal=causal)["simt"]}
+    hubert = time_flash(torch, B, S, H, KH, Dh, window, causal=causal)
+    rows = {"hubert": hubert["sm90"], "hubert_simt": hubert["simt"]}
+    hubert_check = check_hubert_kernels_vs_plain(torch)
     B, S, H, KH, Dh, window, causal = FLASH_RG_LOCAL
     rows["rg_local"] = time_flash(torch, B, S, H, KH, Dh, window, plain_iters=2)["sm90"]
     smoke = {arch: _zoo_smoke(torch, arch) for arch, *_ in ZOO}
@@ -3090,10 +3161,12 @@ def run_zoo(torch):
     t_full = time.perf_counter() - t_full
     slstm = time_slstm(torch)
     train = run_zoo_train(torch)
-    rows["hubert"]["launches"] = full["hubert-xlarge"]["flash_simt"]
+    rows["hubert"]["launches"] = full["hubert-xlarge"]["flash_sm90"]
+    rows["hubert_simt"]["launches"] = full["hubert-xlarge"]["flash_simt"]
     rows["rg_local"]["launches"] = full["recurrentgemma-2b"]["flash_sm90"]
     print(f"phase 15 took {time.perf_counter() - t_phase:.3f} s (15b {t_full:.3f} s)")
-    return dict(rows=rows, smoke=smoke, full=full, slstm=slstm, train=train)
+    return dict(rows=rows, smoke=smoke, full=full, slstm=slstm, train=train,
+                hubert_check=hubert_check)
 
 
 def main() -> int:
@@ -3111,6 +3184,7 @@ def main() -> int:
     from repro_torch.chain import scenarios  # noqa: F401  (import check)
     from repro_torch.configs.lenet_dfl import CONFIG
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.models import lenet
 
     # phase 1: device
@@ -3134,7 +3208,7 @@ def main() -> int:
                 print(f"  ptxas {src}: {line.strip()}")
     smem = build.load("flash_attention_sm90").flash_attention_sm90_smem_bytes
     print("  flash_attention_sm90 dynamic shared memory a block: " + ", ".join(
-        f"Dh {dh} {smem(dh)} B" for dh in (64, 128, 256)))
+        f"Dh {dh} {smem(dh)} B" for dh in ops.SM90_HEAD_DIMS))
 
     # phase 3: kernels against their plain versions, and their times (the
     # flash plain version at B 4 needs ~17 GB: before the model is on the card)
@@ -3290,12 +3364,15 @@ def main() -> int:
                         **{k: v for k, v in row.items() if k not in (
                             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                             "launches", "max_abs_err")}})
-    # the zoo's launch sites (phase 15): the simt kernel at hubert-xlarge's
-    # encoder (Dh 80, bidirectional) and the sm90 kernel at recurrentgemma's
-    # local layers (Dh 256, KV 1, window 2048)
+    # the zoo's launch sites (phase 15): hubert-xlarge's encoder (Dh 80,
+    # bidirectional), the sm90 kernel that runs it and the simt kernel timed
+    # at its shape (launched there no more: 0), and the sm90 kernel at
+    # recurrentgemma's local layers (Dh 256, KV 1, window 2048)
     for kname, site, src, row in (
+            ("flash_attention_sm90", "hubert_encoder",
+             "src/repro_torch/csrc/flash_attention_sm90.cu", zoo["rows"]["hubert"]),
             ("flash_attention", "hubert_encoder", "src/repro_torch/csrc/flash_attention.cu",
-             zoo["rows"]["hubert"]),
+             zoo["rows"]["hubert_simt"]),
             ("flash_attention_sm90", "recurrentgemma_local",
              "src/repro_torch/csrc/flash_attention_sm90.cu", zoo["rows"]["rg_local"])):
         kernels.append({"name": f"{kname}@{site}", "route": "cuda", "source": src,

@@ -5,13 +5,13 @@
 //
 // Replaces the Pallas TPU kernel `flash_attention_fwd` (body `_kernel`) in
 // src/repro/kernels/flash_attention/flash_attention.py:82 for bf16 inputs
-// with a head dim of 64, 128 or 256; csrc/flash_attention.cu keeps fp32 and
-// the other head dims (the wrapper routes by dtype, head dim, alignment and
-// strides before any launch). Same function as flash_attention.cu: m and l
-// in fp32, masked scores at -1e38, tiles wholly above the diagonal or below
-// the window band skipped, output acc / max(l, 1e-37) in bf16, inputs in
-// the model's layout q (B, Sq, H, Dh), k/v (B, Skv, KH, Dh) with their
-// strides (no transpose, no repeat of kv heads, no pad).
+// with a head dim of 64, 80, 128 or 256; csrc/flash_attention.cu keeps fp32
+// and the other head dims (the wrapper routes by dtype, head dim, alignment
+// and strides before any launch). Same function as flash_attention.cu: m
+// and l in fp32, masked scores at -1e38, tiles wholly above the diagonal or
+// below the window band skipped, output acc / max(l, 1e-37) in bf16, inputs
+// in the model's layout q (B, Sq, H, Dh), k/v (B, Skv, KH, Dh) with their
+// strides (no transpose, no repeat of kv heads, no pad in device memory).
 //
 // One numerical difference: p is rounded to bf16 before P.V (the A operand
 // of wgmma is bf16). The JAX model's own forward does the same
@@ -27,7 +27,9 @@
 //
 // What bounds it: operations. At the serving path's shape (B 4, S 4096,
 // H 32, KH 8, Dh 128, causal) a call does 5.50e11 FLOP on 335 MB, so the
-// least time is the FLOPs over the bf16 tensor-core peak, 0.556 ms.
+// least time is the FLOPs over the bf16 tensor-core peak, 0.556 ms; at
+// hubert-xlarge's encoder (B 2, S 4096, H 16 = KH, Dh 80, bidirectional)
+// 1.72e11 FLOP on 84 MB, 0.1737 ms.
 // The design puts both products on the tensor cores and keeps them fed:
 //
 // - Block: 384 threads, one per (128-row query tile, b * H + h), query
@@ -43,6 +45,17 @@
 //   filled within one (b, head) and never read the next batch row. TMA
 //   writes with 128-byte swizzle in boxes of 64 columns (Dh 128 and 256
 //   load as 2 and 4 boxes), the layout wgmma reads without bank conflicts.
+// - Dh 80: a 160-byte row does not fit one 128-byte swizzle atom. The
+//   tensor maps keep dims[0] = 80 and the 64-column boxes, so a row loads
+//   as two boxes, the second from column 64, and TMA fills its columns
+//   80-127 with zeros (out of range, as the rows past S): the tiles are
+//   the Dh-128 kernel's, padded in shared memory and never in device
+//   memory. The tx counts are whole boxes, zero-filled bytes included.
+//   Q.K^T runs Dh / 16 = 5 k-steps and P.V is m64n80k16, which reads the
+//   first 64 columns from one box and the last 16 from the next (LBO
+//   apart): the zero columns are never read and no FLOP is wasted (P.V
+//   over the padded 128 columns, m64n128k16, took 1.12x as long at hubert's
+//   shape: PERF.md).
 // - S = Q.K^T: wgmma m64nBKk16, A (Q) and B (K) K-major from shared memory,
 //   fp32 accumulator in registers.
 // - Softmax in registers on exp2 with scale * log2(e) folded into the
@@ -53,13 +66,13 @@
 //   A-from-registers operand as it lies (see sm90.cuh); V is the B operand
 //   read MN-major (transposed) from shared memory, so it is never
 //   transposed in memory. O (64 x Dh fp32) stays in registers.
-// - Tiles: BQ 128 x BK 128 for Dh 64 and 128 (160 KB of shared memory at
-//   Dh 128: Q 32 KB + 2 stages x (K 32 + V 32) KB). For Dh 256 the O
-//   accumulator alone takes 128 registers a thread and ptxas compiles the
-//   consumers within the kernel's 168 (the launch bound of 384 threads):
-//   BK 32 keeps S and P small (16 + 8 registers). At BK 64 ptxas spilled
-//   476 bytes and the call was slower (PERF.md, PR 13); a third stage
-//   gained nothing at any Dh.
+// - Tiles: BQ 128 x BK 128 for Dh 64, 80 and 128 (160 KB of shared memory
+//   at Dh 80 and 128: Q 32 KB + 2 stages x (K 32 + V 32) KB). For Dh 256
+//   the O accumulator alone takes 128 registers a thread and ptxas compiles
+//   the consumers within the kernel's 168 (the launch bound of 384
+//   threads): BK 32 keeps S and P small (16 + 8 registers). At BK 64
+//   ptxas spilled 476 bytes and the call was slower (PERF.md); a
+//   third stage gained nothing at any Dh.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,9 +91,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DH>
 struct Tiles {
+  static constexpr int DP = (DH + 63) / 64 * 64;        // Dh in whole 64-column boxes
   static constexpr int BK = DH == 256 ? 32 : 128;       // keys per tile
-  static constexpr uint32_t Q_BYTES = kBQ * DH * 2;
-  static constexpr uint32_t KV_BYTES = BK * DH * 2;     // one K or one V tile
+  static constexpr uint32_t Q_BYTES = kBQ * DP * 2;
+  static constexpr uint32_t KV_BYTES = BK * DP * 2;     // one K or one V tile
   static constexpr uint32_t BAR_OFF = Q_BYTES + 2 * kStages * KV_BYTES;
   // barriers: q_full, full_k[kStages], full_v[kStages], empty[kStages];
   // 1024 bytes of slack to align the tiles to the swizzle atom
@@ -102,7 +116,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ Params p) {
   using T = Tiles<DH>;
   constexpr int BK = T::BK;
-  constexpr int NCH = DH / 64;    // 64-column swizzle boxes along Dh
+  constexpr int NCH = T::DP / 64; // 64-column swizzle boxes along Dh
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
   const uint32_t sQ = (raw + 1023) & ~1023u;
@@ -323,7 +337,7 @@ EncodeTiledFn encode_fn() {
 constexpr int kEncodeFailed = 10000;
 
 // (Dh, S, heads, B) with element strides (1, ss, sh, sb); boxes of
-// 64 x rows x 1 x 1
+// 64 x rows x 1 x 1 (a box past Dh's end, as at Dh 80, is zero filled)
 int encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int dh, int seq,
            int heads, int batch, long long ss, long long sh, long long sb,
            int rows) {
@@ -402,6 +416,9 @@ extern "C" int flash_attention_fwd_sm90_bf16(
     case 64:
       return launch<64>(p, q, k, v, batch, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                         v_sb, v_ss, v_sh, s);
+    case 80:
+      return launch<80>(p, q, k, v, batch, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                        v_sb, v_ss, v_sh, s);
     case 128:
       return launch<128>(p, q, k, v, batch, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                          v_sb, v_ss, v_sh, s);
@@ -417,6 +434,7 @@ extern "C" int flash_attention_fwd_sm90_bf16(
 extern "C" int flash_attention_sm90_smem_bytes(int Dh) {
   switch (Dh) {
     case 64: return (int)Tiles<64>::SMEM;
+    case 80: return (int)Tiles<80>::SMEM;
     case 128: return (int)Tiles<128>::SMEM;
     case 256: return (int)Tiles<256>::SMEM;
     default: return 0;

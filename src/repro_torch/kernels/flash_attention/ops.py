@@ -8,9 +8,10 @@ Pallas wrapper's TPU artefacts). CPU tensors go to the plain version in
 launch by ``_variant`` from dtype, head dim, alignment and strides:
 
 - ``"sm90"`` (``csrc/flash_attention_sm90.cu``): bf16 on the tensor cores
-  (wgmma, TMA, a producer warp), for bf16 q, k, v with Dh in 64 / 128 /
-  256, 16-byte aligned base pointers and every batch, sequence and head
-  stride a positive multiple of 8 elements (what a TMA tensor map takes);
+  (wgmma, TMA, a producer warp), for bf16 q, k, v with Dh in 64 / 80 /
+  128 / 256, 16-byte aligned base pointers and every batch, sequence and
+  head stride a positive multiple of 8 elements (what a TMA tensor map
+  takes);
 - ``"simt"`` (``csrc/flash_attention.cu``): everything else the wrappers
   take, fp32 (the tensor cores would need TF32) and the other head dims or
   views.
@@ -33,7 +34,7 @@ from repro_torch.kernels import LAUNCHES, build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 MAX_HEAD_DIM = 256
-SM90_HEAD_DIMS = (64, 128, 256)
+SM90_HEAD_DIMS = (64, 80, 128, 256)
 _ENTRY = {torch.float32: "flash_attention_fwd_f32",
           torch.bfloat16: "flash_attention_fwd_bf16"}
 

@@ -6,7 +6,7 @@ with its custom VJP ``_fwd`` / ``_bwd``). There the Pallas kernel
 ``kernels/flash_attention`` "implements the same forward" and is not
 called by the model; here the forward IS the kernel: CUDA tensors launch
 one of the two flash kernels through ``kernels.flash_attention.ops``
-(``csrc/flash_attention_sm90.cu`` for bf16 at head dims 64 / 128 / 256,
+(``csrc/flash_attention_sm90.cu`` for bf16 at head dims 64 / 80 / 128 / 256,
 ``csrc/flash_attention.cu`` otherwise), CPU tensors take the plain
 version. The kernels mask the ragged edge themselves, so nothing is
 padded, and pick their own tiles.

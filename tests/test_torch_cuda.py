@@ -176,7 +176,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     (1, 512, 32, 8, 128, True, 0),       # llama3's heads
     (1, 512, 16, 8, 256, True, 128),     # gemma3's local heads, a window
     (2, 200, 4, 2, 64, False, 0),        # bidirectional, ragged
-    (1, 77, 4, 1, 80, True, 0),          # KH = 1, Dh padded to 128
+    (1, 77, 4, 1, 80, True, 0),          # KH = 1, hubert's head dim (bf16: sm90)
     (1, 130, 4, 4, 16, True, 0),         # KH = H, the smoke head dim
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -197,6 +197,36 @@ def test_flash_attention_kernel_vs_plain(cuda, B, S, H, KH, Dh, causal, window,
     want = attention_ref(q, k, v, causal=causal, window=window)
     tol = 1e-5 if dtype == "float32" else 1.6e-2
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,KH,causal,window", [
+    (2, 1000, 16, 16, False, 0),         # hubert's heads, bidirectional, ragged
+    (1, 77, 4, 1, True, 0),              # KH = 1
+    (1, 300, 8, 2, True, 100),           # a window
+])
+def test_flash_attention_simt_kernel_at_dh80_in_bf16(cuda, B, S, H, KH, causal,
+                                                     window):
+    """The simt kernel stays held at Dh 80 in bf16, where the routing rule
+    now sends aligned tensors to the sm90 kernel: copies whose base lies 8
+    bytes past an aligned one (chip_smoke's ``_simt_view``) go to the simt
+    kernel."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator().manual_seed(S * H + 80 + window)
+    views = []
+    for heads in (H, KH, KH):
+        x = torch.randn((B, S, heads, 80), generator=g).to(cuda, torch.bfloat16)
+        view = torch.empty(4 + x.numel(), dtype=x.dtype, device=cuda)[4:]
+        views.append(view.view(x.shape).copy_(x))
+    q, k, v = views
+    assert ops._variant(q, k, v) == "simt"
+    reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1 and LAUNCHES["flash_attention_sm90"] == 0
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(), rtol=1.6e-2, atol=1.6e-2)
 
 
 def test_flash_attention_kernel_takes_strided_inputs(cuda):
@@ -225,6 +255,9 @@ def test_flash_attention_kernel_takes_strided_inputs(cuda):
     (1, 1000, 4, 2, 256, True, 0),       # Dh 256, ragged
     (1, 300, 8, 1, 128, True, 0),        # KH = 1
     (1, 300, 8, 8, 64, True, 100),       # KH = H, a window
+    (2, 1000, 16, 16, 80, False, 0),     # hubert's heads, bidirectional, ragged S
+    (1, 333, 8, 1, 80, True, 0),         # Dh 80, causal, KH = 1
+    (1, 700, 8, 2, 80, True, 200),       # Dh 80, a window
 ])
 def test_flash_attention_sm90_kernel_vs_plain(cuda, B, Sq, H, KH, Dh, causal,
                                               window):
@@ -246,7 +279,7 @@ def test_flash_attention_sm90_kernel_vs_plain(cuda, B, Sq, H, KH, Dh, causal,
     torch.testing.assert_close(out.float(), want.float(), rtol=1.6e-2, atol=1.6e-2)
 
 
-@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("Dh", [64, 80, 128, 256])
 def test_flash_attention_sm90_takes_fused_projection_views(cuda, Dh):
     """q, k, v as views of one fused projection output: the strides reach
     the tensor maps as they are (no copy), and a view TMA cannot take goes
@@ -503,6 +536,7 @@ def test_int8_round_on_two_ranks_of_one_card_matches_its_oracle(cuda):
     (1, 1024, 8, 2, 128, True, 0, "bfloat16", "sm90"),
     (1, 1000, 8, 2, 64, True, 128, "bfloat16", "sm90"),
     (1, 512, 4, 2, 256, False, 0, "bfloat16", "sm90"),
+    (2, 1000, 16, 16, 80, False, 0, "bfloat16", "sm90"),
     (2, 100, 4, 2, 16, True, 0, "float32", "simt"),
     (2, 100, 4, 2, 16, True, 32, "bfloat16", "simt"),
     (1, 20, 2, 1, 8, True, 4, "float32", "simt"),

@@ -115,15 +115,17 @@ def test_model_forward_has_no_backward_yet():
 
 def _views(case):
     """q, k, v (B 2, S 16, H 4, KH 2) on the CPU as ``case`` lays them out."""
-    dh = {"dh64": 64, "dh256": 256, "dh16": 16, "dh80": 80}.get(case.split()[-1], 128)
+    dh = {"dh64": 64, "dh256": 256, "dh16": 16, "dh80": 80,
+          "dh96": 96}.get(case.split()[-1], 128)
     dtype = torch.float32 if case.startswith("fp32") else torch.bfloat16
     if case.startswith("fused"):        # one (B, S, H + 2 KH, Dh) projection
         qkv = torch.zeros((2, 16, 8, dh), dtype=dtype)
         return qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
-    if case.startswith("offset"):       # base 2 elements past an aligned one
+    if case.startswith("offset"):       # base 2 (offset8: 4) elements past an aligned one
+        off = 4 if case.startswith("offset8") else 2
         n = 2 * 16 * 4 * dh
-        buf = torch.zeros(2 + 2 * n, dtype=dtype)
-        q = buf[2:2 + n].view(2, 16, 4, dh)
+        buf = torch.zeros(off + 2 * n, dtype=dtype)
+        q = buf[off:off + n].view(2, 16, 4, dh)
         return q, q[:, :, :2], q[:, :, 2:]
     if case.startswith("stride"):       # head stride Dh + 4: not a multiple of 8
         x = torch.zeros((2, 16, 4, dh + 4), dtype=dtype)[..., :dh]
@@ -138,11 +140,13 @@ def _views(case):
     ("bf16 contiguous dh256", "sm90"), ("fused bf16 dh64", "sm90"),
     ("fused bf16 dh128", "sm90"), ("fused bf16 dh256", "sm90"),
     ("fp32 contiguous dh128", "simt"), ("fp32 fused dh64", "simt"),
-    ("bf16 contiguous dh16", "simt"), ("bf16 contiguous dh80", "simt"),
+    ("bf16 contiguous dh16", "simt"), ("bf16 contiguous dh80", "sm90"),
     ("offset bf16 dh128", "simt"), ("stride bf16 dh128", "simt"),
+    ("fused bf16 dh80", "sm90"), ("offset8 bf16 dh80", "simt"),
+    ("bf16 contiguous dh96", "simt"), ("fp32 contiguous dh80", "simt"),
 ])
 def test_routing_rule(case, want):
-    """bf16 at Dh 64/128/256 with TMA-legal bases and strides goes to the
+    """bf16 at Dh 64/80/128/256 with TMA-legal bases and strides goes to the
     Hopper kernel; fp32, other head dims and misaligned views to the simt
     kernel. Decided from the tensors alone, before any launch."""
     q, k, v = _views(case)
@@ -152,7 +156,7 @@ def test_routing_rule(case, want):
     assert sum(LAUNCHES.values()) == 0
 
 
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [64, 80, 128, 256])
 def test_chip_smoke_simt_view_goes_to_simt(dh):
     """chip_smoke holds and times the simt kernel in bf16 on copies whose
     base lies 8 bytes past an aligned one: the routing rule sends them to
