@@ -174,7 +174,22 @@ prints its last line):
    against the eager loop; (c) ``python -m
    repro_torch.launch.train`` with its default arch, xlstm-125m at full
    config, 3 steps at B 2 x S 1024;
-16. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
+16. the dry-run command line's federation runs and remat="dots": (a)
+   ``launch.dryrun.main`` with ``--engine lax`` on the card (lenet,
+   signflip, 16 nodes, 48 ticks, kregular ttl 2, int8 wire, compact),
+   counted: its eight event and byte counters equal to the JAX command
+   line's record for the same flags (constants below), honest accuracy and
+   the poisoners' reputation within 0.05 of it, quantize and dequantize
+   once a training tick; the same run with ``--device cpu``, the same
+   counters; (b) ``--delivery sharded --mesh 2`` (2 gloo ranks on the
+   card), the same counters; (c) the toy at 64 nodes and the default
+   ``--sweep`` grid (12 federations), every outcome finite, federations/s;
+   (d) ``remat="dots"`` against ``"full"`` at phase 14a's shape (llama3-8b
+   full width, depth 4, B 2 x S 4096): the first step's loss and every
+   grad leaf within 1e-6 relative, then 3 timed AdamW steps of each,
+   counted (8 sm90 flash launches a step), peak memory, a profiled step's
+   idle share; both wire kernels timed at the command line's stacked tree;
+17. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line.
 
 It exits non-zero without a result when CUDA is unavailable or when the
@@ -3169,6 +3184,251 @@ def run_zoo(torch):
                 hubert_check=hubert_check)
 
 
+# ------------------------------------------------------------ phase 16
+# the dry-run command line's federation runs and remat="dots". 16a's flags,
+# and the record the JAX package's command line writes for them (jax 0.9.0
+# on the CPU):
+#   PYTHONPATH=src python -m repro.launch.dryrun --engine lax --scenario lenet \
+#       --attack signflip --nodes 16 --ticks 48 --topology kregular --ttl 2 \
+#       --compress int8
+CLI_LAX = ["--engine", "lax", "--scenario", "lenet", "--attack", "signflip",
+           "--nodes", "16", "--ticks", "48", "--topology", "kregular", "--ttl",
+           "2", "--compress", "int8"]
+CLI_JAX_COUNTERS = dict(broadcasts=128, deliveries=988, fedavg_rounds=84,
+                        wire_bytes=108800536, broadcast_bytes=110122,
+                        delivery_budget=8, compact_budget=64,
+                        max_tick_deliveries=24)
+CLI_JAX_HONEST_ACC = 0.10520832985639572
+CLI_JAX_MAL_REP = 0.9766665697097778
+# the two packages draw their train batches from different generators
+# (tests/test_torch_dryrun.py's bound)
+CLI_ACC_TOL = 0.05
+# 16c: --engine lax with the JAX defaults but these, and the default sweep
+CLI_TOY = ["--engine", "lax", "--nodes", "64", "--ticks", "48"]
+CLI_SWEEP = ["--sweep"]
+# 16d: remat="dots" against "full" at phase 14a's shape; the first step's
+# loss and each grad leaf within this relative L2 distance (the saved
+# products are the ones the recompute would make again: bitwise expected)
+DOTS_TOL = 1e-6
+DOTS_STEPS = 3
+
+
+def _cli(argv, tmp, name):
+    """``dryrun.main(argv)`` writing to a new file: (record, wall s)."""
+    from repro_torch.launch import dryrun
+    path = os.path.join(tmp, name + ".json")
+    t0 = time.perf_counter()
+    rc = dryrun.main([*argv, "--out", path])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"dryrun {' '.join(argv)}: exit code {rc}")
+    with open(path) as f:
+        (rec,) = json.load(f)
+    return rec, wall
+
+
+def _cli_counters(rec, what):
+    got = {k: rec[k] for k in CLI_JAX_COUNTERS}
+    if got != CLI_JAX_COUNTERS:
+        fail(f"{what}: counters {got}, the JAX command line's {CLI_JAX_COUNTERS}")
+
+
+def run_cli(torch):
+    """Phase 16a-c: the dry-run command line's federation runs through
+    ``launch.dryrun.main`` on the card: (a) the lax LeNet run, counted,
+    held to the JAX command line's record, and the same run on the CPU;
+    (b) --delivery sharded over 2 gloo ranks on the card; (c) the toy at
+    the JAX defaults and the default sweep grid."""
+    import math
+    import tempfile
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun
+    _, spec, _, cfg, *_ = dryrun._lax_setup(dryrun.build_parser().parse_args(CLI_LAX),
+                                            None)
+    want = _training_ticks(spec, cfg)
+    # the most nodes training on one tick (fixed interval): the stacked tree
+    # of the largest round trip
+    phases = [c % cfg.train_interval[0] for c in spec.initial_countdown]
+    wire_rows = max(phases.count(p) for p in phases)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        torch.cuda.synchronize()
+        reset_launches()
+        rec, wall = _cli(CLI_LAX + ["--device", "cuda"], tmp, "lax")
+        launches = dict(LAUNCHES)
+        _cli_counters(rec, "cli lax (16a) on cuda")
+        if rec["device"] != "cuda":
+            fail(f"cli lax (16a): ran on {rec['device']}")
+        for k, got, ref in (("honest_acc", rec["honest_acc"], CLI_JAX_HONEST_ACC),
+                            ("malicious_reputation", rec["malicious_reputation"],
+                             CLI_JAX_MAL_REP)):
+            if not abs(got - ref) <= CLI_ACC_TOL:
+                fail(f"cli lax (16a): {k} {got} is not within {CLI_ACC_TOL} of "
+                     f"the JAX command line's {ref}")
+        for k in ("quantize", "dequantize"):
+            if launches.get(k, 0) != want:
+                fail(f"cli lax (16a): {k} launched {launches.get(k, 0)} times, not "
+                     f"once a training tick ({want})")
+        print(f"cli lax (16a) {' '.join(CLI_LAX)} on cuda: wall {wall:.3f} s (the "
+              f"simulator's run {rec['wall_s']} s); launches "
+              f"{json.dumps(launches, sort_keys=True)} (training ticks {want}); "
+              f"honest accuracy {rec['honest_acc']:.6f} (JAX {CLI_JAX_HONEST_ACC:.6f}), "
+              f"poisoners' reputation {rec['malicious_reputation']:.6f} (JAX "
+              f"{CLI_JAX_MAL_REP}); counters equal the JAX command line's")
+        cpu, cpu_wall = _cli(CLI_LAX + ["--device", "cpu"], tmp, "lax_cpu")
+        _cli_counters(cpu, "cli lax (16a) on the CPU")
+        print(f"cli lax (16a) on the CPU: wall {cpu_wall:.3f} s, honest accuracy "
+              f"{cpu['honest_acc']:.6f}; counters equal the card's")
+        sharded, sh_wall = _cli(CLI_LAX + ["--delivery", "sharded", "--mesh", "2",
+                                           "--device", "cuda"], tmp, "sharded")
+        _cli_counters(sharded, "cli lax sharded (16b)")
+        if sharded["shards"] != 2:
+            fail(f"cli lax sharded (16b): shards {sharded['shards']}")
+        print(f"cli lax sharded (16b, --mesh 2: 2 gloo ranks on the card): wall "
+              f"{sh_wall:.3f} s (spawn included; the simulator's run "
+              f"{sharded['wall_s']} s), honest accuracy {sharded['honest_acc']:.6f}; "
+              f"counters equal the JAX command line's")
+        toy, toy_wall = _cli(CLI_TOY + ["--device", "cuda"], tmp, "toy")
+        if not (math.isfinite(toy["honest_acc"])
+                and math.isfinite(toy["malicious_reputation"])):
+            fail(f"cli toy (16c): {toy}")
+        print(f"cli toy (16c) {' '.join(CLI_TOY)} on cuda: wall {toy_wall:.3f} s, "
+              f"deliveries {toy['deliveries']}, honest accuracy "
+              f"{toy['honest_acc']:.6f}, poisoners' reputation "
+              f"{toy['malicious_reputation']:.6f}")
+        sweep, sweep_wall = _cli(CLI_SWEEP + ["--device", "cuda"], tmp, "sweep")
+        # an honest cell has no attacker: its attacker reputation is NaN
+        for o in sweep["outcomes"]:
+            vals = [o["final_honest_acc"], o["honest_reputation"]] + (
+                [o["attacker_reputation"]] if o["attack"] != "none" else [])
+            if not all(math.isfinite(v) for v in vals):
+                fail(f"cli sweep (16c): outcome {o}")
+        if sweep["cells"] != 12 or len(sweep["outcomes"]) != 12:
+            fail(f"cli sweep (16c): {sweep['cells']} cells")
+        print(f"cli sweep (16c) on cuda: {sweep['cells']} federations in "
+              f"{sweep['batches']} batches over {sweep['devices']} device(s), wall "
+              f"{sweep_wall:.3f} s (the runs {sweep['wall_s']} s), "
+              f"{sweep['federations_per_s']} federations/s")
+    return dict(lax=dict(wall_s=wall, run_s=rec["wall_s"], launches=launches,
+                        training_ticks=want, wire_rows=wire_rows,
+                        honest_acc=rec["honest_acc"],
+                        malicious_reputation=rec["malicious_reputation"],
+                        cpu_wall_s=cpu_wall, cpu_run_s=cpu["wall_s"],
+                        honest_acc_cpu=cpu["honest_acc"]),
+               sharded=dict(wall_s=sh_wall, run_s=sharded["wall_s"],
+                            honest_acc=sharded["honest_acc"]),
+               toy=dict(wall_s=toy_wall, run_s=toy["wall_s"],
+                        honest_acc=toy["honest_acc"]),
+               sweep=dict(wall_s=sweep_wall, run_s=sweep["wall_s"],
+                          cells=sweep["cells"], batches=sweep["batches"],
+                          federations_per_s=sweep["federations_per_s"],
+                          frontier=sweep["frontier"]["accuracy_under_attack"]))
+
+
+def _timed_steps(torch, cfg):
+    """DOTS_STEPS train steps of ``cfg`` from a fresh state, counted, then one
+    more under the profiler: (seconds a step, peak bytes, launches, profile)."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import step as step_lib
+    args = launch_train.parse_args(TRAIN_ARGS)
+    dev = torch.device("cuda")
+    pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in pipe.batch_at(s).items()}
+               for s in range(DOTS_STEPS + 1)]
+    state = step_lib.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                      device=dev)
+    ts = step_lib.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    secs, losses = [], []
+    for s in range(DOTS_STEPS):
+        t0 = time.perf_counter()
+        state, met = ts(state, batches[s])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        state, _ = ts(state, batches[DOTS_STEPS])
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() / 1e6 for e in measured_events(prof))
+    del state, batches
+    torch.cuda.empty_cache()
+    return dict(step_s=secs, losses=losses, peak_bytes=peak, launches=launches,
+                profile=dict(wall=pwall, busy=busy, idle=1 - busy / pwall))
+
+
+def run_remat_dots(torch):
+    """Phase 16d: remat="dots" against "full" at phase 14a's shape (llama3-8b
+    full width, depth TRAIN_DEPTH, B 2 x S 4096): the first step's loss and
+    grads from the same params, then DOTS_STEPS timed AdamW steps of each,
+    counted, and one profiled."""
+    import dataclasses
+    import math
+
+    from repro_torch import tree
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
+    from repro_torch.train import step as step_lib
+    args = launch_train.parse_args(TRAIN_ARGS)
+    base = _depth(TRAIN_DEPTH)
+    dev = torch.device("cuda")
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             TokenPipeline(base.vocab_size, args.batch, args.seq).batch_at(0).items()}
+    params = transformer.init(torch.Generator(device="cuda").manual_seed(0), base, dev)
+    full = step_lib.loss_and_grads(params, dataclasses.replace(base, remat="full"), batch)
+    dots = step_lib.loss_and_grads(params, dataclasses.replace(base, remat="dots"), batch)
+    loss_gap = abs(float(dots[0]) - float(full[0])) / abs(float(full[0]))
+    gaps = {"/".join(map(str, p)): _rel_l2(d, f) for p, d, f in zip(
+        _tree_paths(full[2]), tree.leaves(dots[2]), tree.leaves(full[2]))}
+    worst = max(gaps, key=gaps.get)
+    bitwise = torch.equal(dots[0], full[0]) and all(
+        torch.equal(d, f) for d, f in zip(tree.leaves(dots[2]), tree.leaves(full[2])))
+    print(f"remat dots (16d, llama3-8b depth {TRAIN_DEPTH}, B {args.batch} x S "
+          f"{args.seq}): first step loss {float(dots[0]):.6f} vs full "
+          f"{float(full[0]):.6f} (relative gap {loss_gap:.3e}, limit {DOTS_TOL}); "
+          f"grads' relative L2 a leaf max {gaps[worst]:.4e} ({worst}, limit "
+          f"{DOTS_TOL}); bitwise {bitwise}")
+    if loss_gap > DOTS_TOL or gaps[worst] > DOTS_TOL:
+        fail(f"remat dots: loss gap {loss_gap}, grad gap {gaps[worst]} ({worst})")
+    del params, full, dots, batch
+    torch.cuda.empty_cache()
+    timed = {}
+    for remat in ("full", "dots"):
+        t = timed[remat] = _timed_steps(torch, dataclasses.replace(base, remat=remat))
+        lc, want = t["launches"], TRAIN_FLASH_A_STEP * DOTS_STEPS
+        print(f"remat {remat}: {DOTS_STEPS} steps {[round(s, 4) for s in t['step_s']]} s, "
+              f"{sum(t['step_s'][1:]) / (DOTS_STEPS - 1):.4f} s a step after the "
+              f"first; peak device memory {t['peak_bytes'] / 2**30:.3f} GiB; launches "
+              f"{json.dumps(lc, sort_keys=True)}; profiled step: wall "
+              f"{t['profile']['wall']:.4f} s, device busy {t['profile']['busy']:.4f} s, "
+              f"idle share {t['profile']['idle']:.4f}")
+        if (lc.get("flash_attention", 0) != want
+                or lc.get("flash_attention_sm90", 0) != want):
+            fail(f"remat {remat}: flash launches {lc}, not {TRAIN_FLASH_A_STEP} a "
+                 f"step, all sm90 ({want})")
+        if not all(math.isfinite(x) for x in t["losses"]):
+            fail(f"remat {remat}: losses {t['losses']}")
+    return dict(loss_gap=loss_gap, grad_rel_l2_max=gaps[worst], worst_leaf=worst,
+                bitwise=bitwise, timed=timed)
+
+
+def run_cli_and_dots(torch):
+    """Phase 16: the command line's federation runs, then remat="dots"."""
+    t_phase = time.perf_counter()
+    cli = run_cli(torch)
+    dots = run_remat_dots(torch)
+    print(f"phase 16 took {time.perf_counter() - t_phase:.3f} s")
+    return dict(cli=cli, dots=dots)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3315,7 +3575,17 @@ def main() -> int:
     print("zoo: " + json.dumps({k: v for k, v in zoo.items() if k != "rows"},
                                sort_keys=True, default=str))
 
-    # phase 16: report
+    # phase 16: the dry-run command line's federation runs (lax LeNet held to
+    # the JAX command line's record, counted; sharded over 2 ranks; the toy and
+    # the default sweep) and remat="dots" against "full" at phase 14a's shape;
+    # both wire kernels at the command line's stacked trainers' tree
+    cli_dots = run_cli_and_dots(torch)
+    rows = cli_dots["cli"]["lax"]["wire_rows"]
+    cli_wire = time_lax_wire(torch, rows, f"command line's stacked LeNet tree "
+                             f"({rows} trainers a tick)")
+    print("cli and dots: " + json.dumps(cli_dots, sort_keys=True, default=str))
+
+    # phase 17: report
     kernels = []
     for kname, src, replaces, err in (
             ("quantize", "src/repro_torch/csrc/quantize.cu",
@@ -3382,6 +3652,30 @@ def main() -> int:
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "call_ms": row["call_ms"],
                         "shape": row["shape"], "timing": row["timing"]})
+    # this slice's launch sites (phase 16): the wire kernels on the command
+    # line's lax run, and the sm90 kernel in the remat="dots" step (phase 14b's
+    # row at the same shape: B 2 x S 4096, H 32, KV 8, Dh 128, with the lse)
+    cli_launches = cli_dots["cli"]["lax"]["launches"]
+    dots_launches = cli_dots["dots"]["timed"]["dots"]["launches"]
+    for kname, site, src, replaces, row, n in (
+            ("quantize", "dryrun_lax", "src/repro_torch/csrc/quantize.cu",
+             "src/repro/kernels/quantize/quantize.py:37", cli_wire[0],
+             cli_launches["quantize"]),
+            ("dequantize", "dryrun_lax", "src/repro_torch/csrc/quantize.cu",
+             "src/repro/kernels/quantize/quantize.py:59", cli_wire[1],
+             cli_launches["dequantize"]),
+            ("flash_attention_sm90", "train_dots",
+             "src/repro_torch/csrc/flash_attention_sm90.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:82",
+             lm["rows"]["flash_attention_sm90"], dots_launches["flash_attention_sm90"])):
+        kernels.append({"name": f"{kname}@{site}", "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": n,
+                        "max_abs_err": row.get("max_abs_err", 0.0), "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row.get("library_ms"),
+                        "shape": row.get("shape", f"{row.get('rows')} rows, "
+                                                  f"{row.get('elements')} elements")})
     f2 = times["wfedavg@f2"]
     print("wfedavg at f2.w: " + json.dumps(f2, sort_keys=True))
     print("flash at gemma3 local heads: " + json.dumps(

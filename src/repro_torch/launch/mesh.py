@@ -108,9 +108,10 @@ def spawn(fn, world_size: int, *, device="cuda", backend=None,
     * The ranks meet through a ``FileStore`` in a new temporary directory:
       no TCP port, so any number of launches can run side by side.
     * ``device``: ``"cpu"``, ``"cuda"`` (rank r on card ``r % count``) or
-      ``"cuda:i"`` (every rank on card i, as on a one-card machine, under
-      gloo). ``backend`` defaults to NCCL for CUDA and gloo for the CPU;
-      nothing switches it silently.
+      ``"cuda:i"`` (every rank on card i, as on a one-card machine).
+      ``backend`` defaults to NCCL when each rank has a card of its own
+      (``"cuda"`` and at least ``world_size`` cards) and to gloo otherwise
+      (the CPU, or ranks that share a card, which NCCL refuses).
     * The process group's timeout is ``timeout`` seconds, and so is the
       whole launch's: when any rank raises, exits without a result, or the
       time runs out, every rank is killed and this call raises.
@@ -122,7 +123,9 @@ def spawn(fn, world_size: int, *, device="cuda", backend=None,
     if world_size < 1:
         raise ValueError(f"world_size must be >= 1, got {world_size}")
     if backend is None:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+        own_cards = (dev.type == "cuda" and dev.index is None
+                     and world_size <= torch.cuda.device_count())
+        backend = "nccl" if own_cards else "gloo"
     if dev.type == "cuda":
         device_lib.resolve(dev)
         from repro_torch.kernels import build

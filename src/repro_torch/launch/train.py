@@ -240,12 +240,7 @@ def run_dfl(args, cfg, dev):
     """Train the federation, one node a rank. Returns the survivors'
     summaries (rank, rounds, launches, wire counters, peak memory) from
     rank 0, or rank 0's own when it is the node that fails."""
-    backend = args.backend
-    if backend is None:
-        own_cards = (dev.type == "cuda" and dev.index is None
-                     and args.fed <= torch.cuda.device_count())
-        backend = "nccl" if own_cards else "gloo"
-    return mesh_lib.spawn(_dfl_rank, args.fed, device=str(dev), backend=backend,
+    return mesh_lib.spawn(_dfl_rank, args.fed, device=str(dev), backend=args.backend,
                           timeout=args.timeout, args=(args, cfg))
 
 

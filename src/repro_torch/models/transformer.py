@@ -31,18 +31,25 @@ Rematerialization (``cfg.remat``, the JAX package's ``jax.checkpoint`` of
 each unit): under autograd, ``"full"`` runs each unit through
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so only the
 unit-boundary residual is kept and the unit's forward, flash kernel
-included, runs again in the backward; ``"none"`` keeps every activation.
-Each loss chunk's unembedding and cross entropy is checkpointed too, so
-the (B, LOSS_CHUNK, vocab) fp32 logits of only one chunk are alive at a
-time.
+included, runs again in the backward; ``"dots"`` (JAX's
+``checkpoint_dots_with_no_batch_dims``) checkpoints each unit the same way
+but saves the outputs of its matrix products without batch dims, the
+dense projections (``aten.mm`` / ``aten.addmm``), and recomputes the rest:
+attention's score and P.V products, the MoE expert and xLSTM einsums
+(batched ``bmm``) and the flash kernel, which is not a product;
+``"none"`` keeps every activation. Each loss chunk's unembedding and cross
+entropy is checkpointed too (whatever the policy), so the (B, LOSS_CHUNK,
+vocab) fp32 logits of only one chunk are alive at a time.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import device as device_lib
 from repro_torch import tree
@@ -55,7 +62,6 @@ from repro_torch.models import xlstm as xlstm_lib
 
 _ATTN_KINDS = (ATTN, LOCAL_ATTN, ENC_ATTN)
 _XLSTM_KINDS = (MLSTM, SLSTM)     # blocks that carry their own FFN / gating
-REMAT_ITEM = "ROADMAP.md queue 1, 'LM training', remat=\"dots\""
 LOSS_CHUNK = 2048  # vocab-projection chunk (tokens) to bound logits memory
 
 
@@ -207,14 +213,33 @@ def _layer(p, cfg, kind, is_moe, h, mix):
     return h + L.mlp_apply(p["ffn"], hn), None
 
 
+# remat="dots": a product without batch dims is ``mm`` / ``addmm``, or a
+# ``bmm`` / ``baddbmm`` over a batch of 1, which is how ``torch.einsum``
+# lowers a contraction without batch dims; a batched ``bmm`` is recomputed.
+# A real batch dim of size 1 looks the same at this level and is saved too
+# (more memory than JAX keeps, the same numbers)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_DOTS = {torch.ops.aten.bmm.default: 0, torch.ops.aten.baddbmm.default: 1}
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"``: save what a
+    matrix product without batch dims returns, recompute everything else."""
+    if op in _DOTS or (op in _BATCHED_DOTS
+                       and args[_BATCHED_DOTS[op]].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(fn, cfg):
     """``fn`` under ``cfg.remat`` when autograd records (training)."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            f"remat='dots' (save the matmul outputs, recompute the rest) is not "
-            f"ported yet: {REMAT_ITEM}")
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       dots_policy)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=context_fn)
     if cfg.remat != "full":
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)

@@ -644,6 +644,63 @@ def test_train_launcher_defaults_to_the_card(cuda):
     assert len(history) == 3 and all(np.isfinite(h["loss"]) for h in history)
 
 
+def test_remat_dots_step_is_the_full_step_on_the_card(cuda):
+    """remat="dots" (dense products saved, the rest and the flash kernel
+    recomputed) against "full" at smoke size with Dh 64 (the sm90 kernel):
+    the same loss and grads within 1e-6 relative (chip_smoke 16d's bound at
+    full width), the kernel launched twice a layer under both."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer
+    from repro_torch.train import step
+    base = dataclasses.replace(smoke_config("llama3-8b"), head_dim=64, d_model=256)
+    params = transformer.init(torch.Generator(device="cuda").manual_seed(0), base, "cuda")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in TokenPipeline(base.vocab_size, 2, 256).batch_at(0).items()}
+    runs = {}
+    for remat in ("full", "dots"):
+        reset_launches()
+        runs[remat] = step.loss_and_grads(params, dataclasses.replace(base, remat=remat),
+                                          batch)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention_sm90"] == 2 * base.num_layers
+    assert abs(float(runs["dots"][0]) - float(runs["full"][0])) <= 1e-6 * abs(
+        float(runs["full"][0]))
+    for a, b in zip(tree.leaves(runs["dots"][2]), tree.leaves(runs["full"][2])):
+        assert float((a - b).norm()) <= 1e-6 * float(b.norm())
+
+
+def test_dryrun_lax_runs_on_the_card_with_one_wire_pair_a_training_tick(cuda, tmp_path):
+    """The dry-run command line's lax LeNet run (tests/test_torch_dryrun.py's
+    flags) on its default device: the record says cuda, the counters are
+    the CPU run's, and quantize / dequantize launch once a training tick
+    (fixed interval 6, every tick has a trainer: 12)."""
+    import json
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun
+    argv = ["--engine", "lax", "--scenario", "lenet", "--attack", "signflip",
+            "--nodes", "10", "--ticks", "12", "--topology", "kregular", "--ttl",
+            "2", "--compress", "int8", "--out", str(tmp_path / "d.json")]
+    reset_launches()
+    assert dryrun.main(argv) == 0
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    assert dryrun.main(argv + ["--device", "cpu"]) == 0
+    with open(tmp_path / "d.json") as f:
+        card, cpu = json.load(f)
+    assert card["device"] == "cuda" and cpu["device"] == "cpu"
+    counters = ("broadcasts", "deliveries", "fedavg_rounds", "wire_bytes",
+                "broadcast_bytes", "delivery_budget", "compact_budget",
+                "max_tick_deliveries")
+    assert {k: card[k] for k in counters} == {k: cpu[k] for k in counters}
+    assert launches["quantize"] == launches["dequantize"] == 12
+
+
 ZOO_NEW = ("recurrentgemma-2b", "chatglm3-6b", "command-r-35b", "dbrx-132b",
            "llama4-maverick-400b-a17b", "xlstm-125m", "hubert-xlarge",
            "llava-next-mistral-7b")

@@ -3,8 +3,9 @@
 JAX-initialised params carried across with ``repro_torch.convert``, the
 same ``TokenPipeline`` batch, for llama3-8b (global attention) and
 gemma3-12b (5 local : 1 global, the window inside the sequence); the
-naive blocked attention, accumulation microbatches and the remat policies;
-the LM receipt (``core.dfl.make_lm_eval_fn``); and checkpoints (the same
+naive blocked attention, accumulation microbatches and the remat policies
+(remat="dots" saves, a unit, as many products as the JAX unit has
+dot_generals without batch dims); the LM receipt (``core.dfl.make_lm_eval_fn``); and checkpoints (the same
 manifest as JAX's for one state, a JAX-written chain restored and
 extended).
 
@@ -27,6 +28,9 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
+
+from torch.multiprocessing.reductions import StorageWeakRef     # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode      # noqa: E402
 
 from repro.configs import smoke_config as j_smoke_config        # noqa: E402
 from repro.core import dfl as j_dfl                             # noqa: E402
@@ -132,22 +136,133 @@ def test_train_step_matches_jax(arch, impl):
         assert p.shape == j.shape and p.dtype == j.dtype
 
 
+def _jax_unit_dots_without_batch_dims(cfg, batch):
+    """The dot_generals with no batch dims inside the JAX loss's remat
+    (one scanned unit), nested calls and scans included."""
+    def subs(e):
+        for v in e.params.values():
+            for x in (v if isinstance(v, (list, tuple)) else (v,)):
+                if hasattr(x, "eqns"):
+                    yield x
+                elif hasattr(getattr(x, "jaxpr", None), "eqns"):
+                    yield x.jaxpr
+
+    def dots(j):
+        return sum((e.primitive.name == "dot_general"
+                    and not e.params["dimension_numbers"][1][0])
+                   + sum(dots(x) for x in subs(e)) for e in j.eqns)
+
+    def remats(j):
+        for e in j.eqns:
+            if e.primitive.name in ("checkpoint", "remat2"):
+                yield e
+            else:
+                for x in subs(e):
+                    yield from remats(x)
+
+    params, _ = j_tf.init(jax.random.PRNGKey(0), cfg)
+    jx = jax.make_jaxpr(lambda p: j_tf.train_loss(p, cfg, batch)[0])(params)
+    (unit,) = remats(jx.jaxpr)
+    return sum(dots(x) for x in subs(unit))
+
+
+class _ProductOutputs(TorchDispatchMode):
+    """Records a weak reference to the storage of every matrix product's
+    output dispatched while it is on."""
+
+    OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+           torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+    def __init__(self):
+        super().__init__()
+        self.refs = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in self.OPS:
+            self.refs.append(StorageWeakRef(out.untyped_storage()))
+        return out
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "dbrx-132b"])
+def test_remat_dots_saves_the_products_without_batch_dims(arch):
+    """Under remat="dots" the forward leaves alive, a unit, as many matrix
+    product outputs as the JAX unit has dot_generals without batch dims
+    (its policy's saveables: the dense projections and the MoE router;
+    attention's and the experts' batched einsums are recomputed), and under
+    "full" none. A saved-tensors hook outside the units sees the same
+    tensors under both policies: checkpoint's own hooks hold the unit's
+    boundary, and the policy's saves live in the checkpoint's cache, which
+    is why the products are counted by their storages staying alive."""
+    jcfg, _ = _cfgs(arch, remat="dots")
+    jb, pb = _batch(5)
+    want = _jax_unit_dots_without_batch_dims(jcfg, jb)
+    alive, packed = {}, {}
+    for remat in ("full", "dots"):
+        _, pcfg = _cfgs(arch, remat=remat)
+        params = p_tf.init(torch.Generator().manual_seed(0), pcfg, "cpu")
+        leaves = [x.requires_grad_() for x in tree.leaves(params)]
+        rec, n = _ProductOutputs(), [0]
+
+        def pack(t):
+            n[0] += 1
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t), rec:
+            loss, _ = p_tf.train_loss(params, pcfg, pb)
+        alive[remat] = sum(not r.expired() for r in rec.refs)
+        packed[remat] = n[0]
+        torch.autograd.grad(loss, leaves, allow_unused=True)
+    n_units = p_tf.unit_layout(pcfg)[0]
+    assert alive["full"] == 0
+    assert alive["dots"] == want * n_units, (alive, want, n_units)
+    assert packed["dots"] == packed["full"]
+
+
+@pytest.mark.parametrize("eq,shapes,saved", [
+    ("bsd,df->bsf", ((2, 5, 8), (8, 6)), 1),     # no batch dims: bmm over 1
+    ("bqd,bkd->bqk", ((2, 5, 8), (2, 7, 8)), 0),  # batch dim b: bmm over 2
+])
+def test_remat_dots_policy_reads_the_operands(eq, shapes, saved):
+    """``torch.einsum`` lowers a contraction without batch dims to a bmm over
+    a batch of 1: the dots policy saves it as JAX saves the dot_general,
+    and recomputes a batched one."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+    g = torch.Generator().manual_seed(0)
+    x, w = (torch.randn(s, generator=g, requires_grad=True) for s in shapes)
+    rec = _ProductOutputs()
+    with rec:
+        y = checkpoint(lambda a, b: torch.einsum(eq, a, b).tanh(), x, w,
+                       use_reentrant=False,
+                       context_fn=lambda: create_selective_checkpoint_contexts(
+                           p_tf.dots_policy))
+    assert sum(not r.expired() for r in rec.refs) == saved
+    y.sum().backward()
+
+
 def test_remat_policies_and_accumulation():
-    """remat "full" (checkpointed units and loss chunks) gives the same
-    bits as "none"; "dots" raises naming its ROADMAP item; two
-    accumulation microbatches against JAX's scan over them."""
+    """remat "full" (checkpointed units and loss chunks) and "dots" (saved
+    dense products, the rest recomputed) give the same bits as "none", and
+    "dots" is within the step tolerances of JAX's remat="dots" loss and
+    grads; two accumulation microbatches against JAX's scan over them."""
     np_state = _np_state("llama3-8b")
-    _, pb = _batch(3)
+    jb, pb = _batch(3)
     runs = {}
-    for remat in ("full", "none"):
+    for remat in ("full", "none", "dots"):
         _, pcfg = _cfgs("llama3-8b", remat=remat)
         runs[remat] = p_step.loss_and_grads(_port_state(np_state)["params"], pcfg, pb)
-    for a, b in zip(tree.leaves(runs["full"][2]), tree.leaves(runs["none"][2])):
-        assert torch.equal(a, b)
-    assert torch.equal(runs["full"][0], runs["none"][0])
-    _, pcfg = _cfgs("llama3-8b", remat="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
-        p_step.loss_and_grads(_port_state(np_state)["params"], pcfg, pb)
+    for remat in ("none", "dots"):
+        for a, b in zip(tree.leaves(runs["full"][2]), tree.leaves(runs[remat][2])):
+            assert torch.equal(a, b)
+        assert torch.equal(runs["full"][0], runs[remat][0])
+    jcfg, _ = _cfgs("llama3-8b", remat="dots")
+    (j_loss, _), j_grads = jax.value_and_grad(
+        lambda p: j_tf.train_loss(p, jcfg, jb), has_aux=True)(
+            jax.tree.map(jnp.asarray, np_state["params"]))
+    assert abs(float(runs["dots"][0]) - float(j_loss)) <= LOSS_TOL
+    gaps = [_rel_l2(p, j) for p, j in zip(
+        tree.leaves(convert.params_to_numpy(runs["dots"][2])), jax.tree.leaves(j_grads))]
+    assert max(gaps) <= GRAD_TOL, gaps
 
     jcfg, pcfg = _cfgs("llama3-8b", accum_steps=2)
     jb, pb = _batch(4)

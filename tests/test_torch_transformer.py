@@ -194,19 +194,38 @@ def test_full_llama3_8b_param_count():
 
 
 def test_unported_kinds_raise():
-    """What the port still does not run raises naming its ROADMAP item:
-    remat="dots" under autograd. Every layer kind, MoE and both frontends
-    build and run (an RG-LRU-only config, which used to raise here)."""
-    cfg = ArchConfig(name="rg", family="ssm", num_layers=2, d_model=64,
-                     num_heads=4, num_kv_heads=1, d_ff=128, vocab_size=256,
-                     block_pattern=(RGLRU,), remat="dots")
-    params = p_tf.init(torch.Generator(), cfg, "cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
+    """No layer kind or remat policy of the model raises as unported: an
+    RG-LRU-only config serves, and trains under remat="dots" with the loss
+    and grads of remat="full", within the training step's tolerances of
+    JAX's remat="dots" loss and grads (tests/test_torch_train_step.py:
+    loss 5e-3, each grad leaf 6e-2 relative L2) from the same params."""
+    from repro.configs import ArchConfig as JArchConfig
+    from repro_torch.train import step as p_step
+    kw = dict(name="rg", family="ssm", num_layers=2, d_model=64, num_heads=4,
+              num_kv_heads=1, d_ff=128, vocab_size=256, block_pattern=(RGLRU,))
+    cfg = ArchConfig(**kw, remat="dots")
+    jcfg = JArchConfig(**kw, remat="dots")
+    np_params = jax.tree.map(np.asarray, j_tf.init(jax.random.PRNGKey(0), jcfg)[0])
+    params = convert.params_from_jax(np_params, "cpu")
+    toks = np.random.RandomState(0).randint(0, 256, (2, 32)).astype(np.int32)
     with torch.no_grad():
-        logits, _ = p_tf.prefill(params, cfg, {"tokens": toks}, None)
-    assert logits.shape == (1, 256)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*dots"):
-        p_tf.train_loss(params, cfg, {"tokens": toks, "labels": toks})
+        logits, _ = p_tf.prefill(params, cfg, {"tokens": torch.as_tensor(toks)}, None)
+    assert logits.shape == (2, 256)
+    batch = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(toks)}
+    loss, _, grads = p_step.loss_and_grads(params, cfg, batch)
+    f_loss, _, f_grads = p_step.loss_and_grads(
+        params, dataclasses.replace(cfg, remat="full"), batch)
+    assert torch.equal(loss, f_loss)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(grads), tree.leaves(f_grads)))
+    (j_loss, _), j_grads = jax.value_and_grad(
+        lambda p: j_tf.train_loss(p, jcfg, {"tokens": jnp.asarray(toks),
+                                            "labels": jnp.asarray(toks)}),
+        has_aux=True)(jax.tree.map(jnp.asarray, np_params))
+    assert abs(float(loss) - float(j_loss)) <= 5e-3
+    for got, want in zip(tree.leaves(convert.params_to_numpy(grads)),
+                         jax.tree.leaves(j_grads)):
+        want = np.asarray(want)
+        assert np.linalg.norm(got - want) <= 6e-2 * np.linalg.norm(want)
 
 
 def test_serve_entry_point(capsys, monkeypatch):
