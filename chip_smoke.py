@@ -189,6 +189,22 @@ prints its last line):
    grad leaf within 1e-6 relative, then 3 timed AdamW steps of each,
    counted (8 sm90 flash launches a step), peak memory, a profiled step's
    idle share; both wire kernels timed at the command line's stacked tree;
+18. (after 16, before 17's lines) the dry-run cell report: (a) ``python -m
+   repro_torch.launch.dryrun --all``, ``--all --multi-pod`` and
+   ``--arch A --shape train_4k --dfl`` for each of the ten archs (ring ttl
+   1) and llama3-8b's smallworld ttl 2 int8 round, three processes side by
+   side on the host (every cell traced on the meta device, nothing on the
+   card): every record ``ok`` or the ``skip`` that ``cell_status`` gives,
+   no None under ``bytes_per_device``, ``dominant`` set, a train cell's
+   useful ratio in (0, 1], both tables and ``python -m
+   repro_torch.launch.report`` rendered, the single-pod roofline rows of
+   llama3-8b, dbrx-132b and llama4-maverick printed; (b) the record of
+   phase 14a's step (llama3-8b full width, depth 4, B 2 x S 4096 on a 1 x 1
+   mesh) under remat full and dots against phase 16d's measured steps:
+   argument bytes within 1% of the allocated state and batch, peak within
+   25% of ``max_memory_allocated`` over the steps, the roofline bound
+   max(compute, memory) at most 1.05 x the measured step, and the record's
+   flash calls (8 a step, sm90) equal to the measured launches;
 17. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line.
 
@@ -3335,10 +3351,16 @@ def _timed_steps(torch, cfg):
     args = launch_train.parse_args(TRAIN_ARGS)
     dev = torch.device("cuda")
     pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     batches = [{k: torch.as_tensor(v, device=dev) for k, v in pipe.batch_at(s).items()}
                for s in range(DOTS_STEPS + 1)]
+    batch_bytes = sum(t.numel() * t.element_size() for t in batches[0].values())
     state = step_lib.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
                                       device=dev)
+    torch.cuda.synchronize()
+    # what the step takes: the state and one step's batch (phase 18b)
+    arg_bytes = torch.cuda.memory_allocated() - base - DOTS_STEPS * batch_bytes
     ts = step_lib.make_train_step(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3361,6 +3383,7 @@ def _timed_steps(torch, cfg):
     del state, batches
     torch.cuda.empty_cache()
     return dict(step_s=secs, losses=losses, peak_bytes=peak, launches=launches,
+                base_bytes=base, arg_bytes=arg_bytes,
                 profile=dict(wall=pwall, busy=busy, idle=1 - busy / pwall))
 
 
@@ -3427,6 +3450,182 @@ def run_cli_and_dots(torch):
     dots = run_remat_dots(torch)
     print(f"phase 16 took {time.perf_counter() - t_phase:.3f} s")
     return dict(cli=cli, dots=dots)
+
+
+# ------------------------------------------------------------ phase 18
+# the dry-run cell report (python -m repro_torch.launch.dryrun, --engine
+# mesh: every cell traced on the meta device on the CPU; no kernel launches)
+CELL_ROOFLINE_ARCHS = ("llama3-8b", "dbrx-132b", "llama4-maverick-400b-a17b")
+CELL_TIMEOUT_S = 600          # each command line of 18a
+CELL_ARG_TOL = 0.01           # 18b: predicted argument bytes vs allocated
+CELL_PEAK_TOL = 0.25          # 18b: predicted peak vs max_memory_allocated
+CELL_BOUND_SLACK = 1.05       # 18b: the roofline bound <= 1.05 x the step
+
+
+def _cell_commands(out_dir):
+    """18a's command lines: --all and --all --multi-pod, and the gossip
+    round of each arch (ring ttl 1) and llama3-8b's (smallworld ttl 2,
+    int8) in one interpreter: three processes, run side by side."""
+    from repro_torch.configs import ARCH_IDS
+    dfl = [["--arch", a, "--shape", "train_4k", "--dfl"] for a in ARCH_IDS] + [
+        ["--arch", "llama3-8b", "--shape", "train_4k", "--dfl", "--topology",
+         "smallworld", "--ttl", "2", "--compress", "int8"]]
+    dfl = [[*a, "--out", os.path.join(out_dir, "dryrun_dfl_single_pod.json")]
+           for a in dfl]
+    mod = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    return [mod + ["--all", "--out", os.path.join(out_dir, "dryrun_single_pod.json")],
+            mod + ["--all", "--multi-pod", "--out",
+                   os.path.join(out_dir, "dryrun_multi_pod.json")],
+            [sys.executable, "-c",
+             "import sys\nfrom repro_torch.launch import dryrun\n"
+             f"sys.exit(max(dryrun.main(a) for a in {dfl!r}))"]]
+
+
+def _check_cell_records(name, records):
+    from repro_torch.configs import SHAPES, cell_status, get_config
+    for r in records:
+        where = f"{name}: {r.get('arch')} x {r.get('shape')}"
+        if r.get("status") == "skip":
+            ok, why = cell_status(get_config(r["arch"]), SHAPES[r["shape"]])
+            if ok or r["reason"] != why:
+                fail(f"{where}: skipped ({r['reason']}), cell_status says {ok, why}")
+            continue
+        if r.get("status") != "ok" or "error" in r:
+            fail(f"{where}: {r.get('status')} {r.get('error')}")
+        if any(v is None for v in r["bytes_per_device"].values()):
+            fail(f"{where}: bytes_per_device {r['bytes_per_device']}")
+        if r["roofline"]["dominant"] not in ("compute", "memory", "collective"):
+            fail(f"{where}: dominant {r['roofline']['dominant']}")
+        ratio = r["useful_flops_ratio"]
+        if r["step_kind"] == "train" and not 0 < ratio <= 1:
+            fail(f"{where}: useful ratio {ratio}")
+
+
+def run_cell_report_cli(root):
+    """Phase 18a: the cell report's command lines, every record checked,
+    both tables rendered and the report module run over the records."""
+    import shutil
+
+    from repro_torch.launch import report
+    out_dir = os.path.join(root, "build", "dryrun_cells")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in _cell_commands(out_dir)]
+    try:
+        logs = [p.communicate(timeout=CELL_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            fail(f"cell report: {p.args[-3:]} exited {p.returncode}:\n{log[-3000:]}")
+    for log in logs:
+        for line in log.splitlines():
+            if line.startswith("[dryrun] done") or "gossip schedule" in line:
+                print(f"  {line}")
+    records = {}
+    for name in ("dryrun_single_pod", "dryrun_multi_pod", "dryrun_dfl_single_pod"):
+        with open(os.path.join(out_dir, name + ".json")) as f:
+            records[name] = json.load(f)
+        _check_cell_records(name, records[name])
+        report.dryrun_table(records[name])
+    if [len(records[n]) for n in records] != [40, 40, 11]:
+        fail(f"cell report: {[len(v) for v in records.values()]} records")
+    table = report.roofline_table(records["dryrun_single_pod"])
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.report",
+                           "--dir", out_dir], env=env, capture_output=True,
+                          text=True, timeout=120)
+    if proc.returncode != 0 or "Roofline" not in proc.stdout:
+        fail(f"cell report: the report module: {proc.stderr[-2000:]}")
+    print("cell report roofline rows (single pod, predictions from the H100 "
+          "datasheet figures, not measurements):")
+    print("\n".join(table.splitlines()[:2]))
+    for line in table.splitlines()[2:]:
+        if line.split(" | ")[0].lstrip("| ") in CELL_ROOFLINE_ARCHS:
+            print(line)
+    dfl = {(r["arch"], r["topology"]): r for r in records["dryrun_dfl_single_pod"]}
+    sw = dfl["llama3-8b", "smallworld"]
+    print(f"cell report dfl: llama3-8b smallworld ttl 2 int8: "
+          f"{sw['gossip_schedule']['num_collectives']} exchanges, permute bytes "
+          f"a device {sw['permute_bytes']:.4e} (ring fp32 "
+          f"{dfl['llama3-8b', 'ring']['permute_bytes']:.4e}), useful ratio "
+          f"{sw['useful_flops_ratio']:.3f}")
+    n_ok = sum(r["status"] == "ok" for v in records.values() for r in v)
+    print(f"cell report (18a): {n_ok} ok records of {sum(map(len, records.values()))}"
+          f" in {wall:.3f} s (three command lines side by side)")
+    return dict(wall_s=wall, ok=n_ok,
+                roofline={line.split(" | ")[0].lstrip("| ") + "/" + line.split(" | ")[1]:
+                          line for line in table.splitlines()[2:]
+                          if line.split(" | ")[0].lstrip("| ") in CELL_ROOFLINE_ARCHS})
+
+
+def check_cell_against_card(torch, timed, smi):
+    """Phase 18b: the cell record of phase 14a's step (llama3-8b full width,
+    depth TRAIN_DEPTH, B 2 x S 4096, on a 1 x 1 abstract mesh) under remat
+    full and dots, against phase 16d's measurements of the same steps."""
+    import dataclasses
+
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as launch_train
+    args = launch_train.parse_args(TRAIN_ARGS)
+    shape = InputShape("train_4k", args.seq, args.batch, "train")
+    mesh = mesh_lib.AbstractMesh(("data", "model"), (1, 1))
+    base = _depth(TRAIN_DEPTH)
+    out = {}
+    for remat in ("full", "dots"):
+        t = timed[remat]
+        rec, counts = dryrun.cell_record(dataclasses.replace(base, remat=remat),
+                                         shape, mesh)
+        b, rf = rec["bytes_per_device"], rec["roofline"]
+        step = sum(t["step_s"][1:]) / (len(t["step_s"]) - 1)
+        batch_bytes = 2 * 4 * args.batch * args.seq          # int32 tokens, labels
+        peak = t["peak_bytes"] - t["base_bytes"] - DOTS_STEPS * batch_bytes
+        bound = max(rf["compute_s"], rf["memory_s"])
+        flash = counts["kernel_calls"].get("flash_attention_sm90", 0)
+        measured_flash = t["launches"].get("flash_attention_sm90", 0) / DOTS_STEPS
+        mfu = rec["model_flops_global"] / (989e12 * step)
+        row = dict(arg_pred=b["argument"], arg_meas=t["arg_bytes"],
+                   peak_pred=b["peak"], peak_meas=peak, temp_pred=b["temp"],
+                   compute_s=rf["compute_s"], memory_s=rf["memory_s"],
+                   flops=rf["hlo_flops"], bytes=rf["hlo_bytes"], step_s=step,
+                   bound_share=bound / step, mfu_6nd=mfu, flash=flash,
+                   flash_measured=measured_flash, trace_s=rec["lower_s"])
+        out[remat] = row
+        print(f"cell vs card (18b, remat {remat}; {smi}): argument predicted "
+              f"{b['argument'] / 2**30:.4f} GiB, allocated {t['arg_bytes'] / 2**30:.4f}"
+              f" GiB; peak predicted {b['peak'] / 2**30:.4f} GiB (temp "
+              f"{b['temp'] / 2**30:.4f}), measured {peak / 2**30:.4f} GiB; bound "
+              f"max(compute {rf['compute_s']:.5f}, memory {rf['memory_s']:.5f}) s "
+              f"= {bound / step:.4f} of the measured step {step:.5f} s; 6ND/(989e12 x "
+              f"step) {mfu:.4f}; flash {flash:.0f} a step ({rec['roofline']['dominant']}"
+              f" dominant), measured {measured_flash:.1f} sm90")
+        if abs(b["argument"] / t["arg_bytes"] - 1) > CELL_ARG_TOL:
+            fail(f"18b {remat}: argument {b['argument']} vs {t['arg_bytes']}")
+        if abs(b["peak"] / peak - 1) > CELL_PEAK_TOL:
+            fail(f"18b {remat}: peak {b['peak']} vs {peak}")
+        if bound > CELL_BOUND_SLACK * step:
+            fail(f"18b {remat}: bound {bound} s above the step's {step} s")
+        if flash != measured_flash or flash != TRAIN_FLASH_A_STEP:
+            fail(f"18b {remat}: flash {flash} a step vs {measured_flash} measured")
+    return out
+
+
+def run_cell_report(torch, root, timed, smi):
+    """Phase 18: the cell report (18a) and its record against the card (18b)."""
+    t_phase = time.perf_counter()
+    cli = run_cell_report_cli(root)
+    card = check_cell_against_card(torch, timed, smi)
+    print(f"phase 18 took {time.perf_counter() - t_phase:.3f} s")
+    return dict(cli=cli, card=card)
 
 
 def main() -> int:
@@ -3584,6 +3783,12 @@ def main() -> int:
     cli_wire = time_lax_wire(torch, rows, f"command line's stacked LeNet tree "
                              f"({rows} trainers a tick)")
     print("cli and dots: " + json.dumps(cli_dots, sort_keys=True, default=str))
+
+    # phase 18: the dry-run cell report on the meta device (every cell of
+    # --all, --all --multi-pod and the gossip rounds, checked, the tables
+    # rendered), and phase 14a's cell against 16d's measured steps
+    cells = run_cell_report(torch, root, cli_dots["dots"]["timed"], smi)
+    print("cell report: " + json.dumps(cells, sort_keys=True, default=str))
 
     # phase 17: report
     kernels = []

@@ -51,6 +51,7 @@ from repro_torch import tree
 from repro_torch.chain.attacks import FederationSpec
 from repro_torch.chain.node import DFLNode
 from repro_torch.configs.lenet_dfl import CONFIG as LENET_CFG
+from repro_torch.core import tracecheck
 from repro_torch.core.reputation import ReputationImpl
 from repro_torch.data.partition import dirichlet_class_probs, iid_class_probs
 from repro_torch.data.synthetic import SyntheticMnist
@@ -373,7 +374,7 @@ class LeNetScenario:
         ``GRAPH_MODELS`` models replay one captured CUDA graph a model
         count (the same kernels at the same shapes, a few launches in
         place of hundreds); larger calls, and the CPU, run eagerly."""
-        if rows.is_cuda and rows.shape[0] <= GRAPH_MODELS:
+        if _graphed(rows):
             # all steps' batches at once, step-major: (steps, M, batch, ...)
             pick = (rows[None, :, None], idx.transpose(0, 1))
             images, labels = data["images"][pick], data["labels"][pick]
@@ -434,13 +435,20 @@ EVAL_PAIRS = 1 << 17
 GRAPH_MODELS = 32
 
 
+def _graphed(rows) -> bool:
+    """Whether a stacked SGD call over ``rows`` replays a CUDA graph."""
+    return rows.is_cuda and rows.shape[0] <= GRAPH_MODELS
+
+
 class _SGDGraph:
     """``LeNetScenario._sgd_steps`` over M stacked models, captured once as
     a CUDA graph: a call copies the models and the steps' batches into the
     graph's input buffers, replays it and copies the trained models out.
     Warm-up runs on a side stream before the capture, as CUDA graphs
-    require."""
+    require. Each construction is one capture
+    (``tracecheck.get_counter("chain.scenarios.sgd_graph")``)."""
 
+    @tracecheck.count_captures(name="chain.scenarios.sgd_graph")
     def __init__(self, scenario, models, images, labels):
         self.models = tree.map(torch.clone, models)
         self.images, self.labels = images.clone(), labels.clone()

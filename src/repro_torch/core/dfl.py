@@ -6,10 +6,13 @@ In the JAX package a federation is one program over a device mesh whose
 ``fed`` axis holds the nodes, stacked. Here each node is a process (a rank
 of the federation's process group, ``launch.mesh.spawn``) that holds its
 whole replica, so ``init_federation`` builds one rank's node and nothing is
-stacked on a rank. The XLA dry-run path of the JAX module (``fed_axis_for``,
-``gossip_rules``, ``abstract_fed_params``, ``lower_gossip_round``) lowers
-the round onto a mesh; it comes with ``sharding.py`` (ROADMAP.md queue 1,
-'CLI and the rest').
+stacked on a rank.
+
+The dry-run cell's helpers (``fed_axis_for``, ``gossip_rules``,
+``abstract_fed_params``, ``abstract_gossip_round``: the JAX module's
+``lower_gossip_round``) describe the federation over an abstract mesh
+(``launch.mesh.AbstractMesh``) and trace one device's gossip round on the
+meta device.
 """
 from __future__ import annotations
 
@@ -19,7 +22,11 @@ from typing import Optional
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.configs.base import ArchConfig
+from repro_torch import sharding as sh
+from repro_torch import tree
+from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.core import gossip as gossip_lib
+from repro_torch.core import reputation as rep_lib
 from repro_torch.core import topology as topology_lib
 from repro_torch.models import transformer
 from repro_torch.train import step as step_lib
@@ -110,6 +117,63 @@ def val_batch_specs(cfg: ArchConfig, dfl: DFLConfig, fed_size: int):
         out["patch_embeds"] = ((fed_size, b, cfg.num_patch_tokens, cfg.d_model),
                                torch.bfloat16)
     return out
+
+
+def fed_axis_for(mesh) -> str:
+    return "pod" if "pod" in mesh.axis_names else (
+        "fed" if "fed" in mesh.axis_names else "data")
+
+
+def gossip_rules(cfg: ArchConfig, fed_axis: str) -> dict:
+    """Sharding rules inside the gossip round: never the fed axis for the
+    model's dims, no FSDP when the data axis is the fed axis."""
+    rules = sh.make_rules(fsdp=cfg.fsdp and fed_axis != "data")
+    rules[sh.BATCH] = () if fed_axis == "data" else (("data",),)
+    rules[sh.FED] = ((fed_axis,),)
+    return rules
+
+
+def _prepend_fed(axes_tree):
+    return tree.map(lambda a: (sh.FED, *a), axes_tree, is_leaf=sh.is_axes)
+
+
+def abstract_fed_params(cfg: ArchConfig, fed_size: int):
+    """(the federation's stacked params (F, ...) on the meta device, their
+    logical axes with FED in front)."""
+    params, axes = step_lib.abstract_params(cfg)
+    fed = tree.map(lambda p: torch.empty((fed_size, *p.shape), dtype=p.dtype,
+                                         device=p.device), params)
+    return fed, _prepend_fed(axes)
+
+
+def val_batch_axes(val_batch):
+    """Logical axes of a (F, b, ...) validation batch of tensors."""
+    return {k: (sh.FED, sh.BATCH, *([None] * (v.dim() - 2)))
+            for k, v in val_batch.items()}
+
+
+def abstract_gossip_round(cfg: ArchConfig, shape: InputShape, mesh, dfl: DFLConfig,
+                          val_rows: int):
+    """(round_fn, args): one device's gossip round over ``mesh`` and its
+    inputs on the meta device, for the JAX module's ``lower_gossip_round``.
+    ``round_fn(*args)`` runs node 0's round: it receives the schedule's
+    payloads (meta tensors; each exchange records its bytes with
+    ``launch.op_cost.record_collective``), takes a receipt on each with its
+    validation batch of ``val_rows`` rows and averages (Eq. 3); trace it
+    under an ``op_cost.OpCost``."""
+    if shape.kind != "train":
+        raise ValueError("the DFL gossip round applies to training shapes")
+    fed_size = mesh.shape[fed_axis_for(mesh)]
+    round_fn = gossip_lib.make_gossip_round(
+        make_lm_eval_fn(cfg), fed_size=fed_size, ttl=dfl.ttl,
+        rep_impl=rep_lib.get(dfl.reputation), compress=dfl.compress, mesh=mesh,
+        topology=dfl.make_topology(fed_size), schedule=dfl.schedule)
+    params, _ = step_lib.abstract_params(cfg)
+    meta = step_lib.META
+    val = {k: torch.empty((val_rows, *dims[2:]), dtype=dt, device=meta)
+           for k, (dims, dt) in val_batch_specs(cfg, dfl, 1).items()}
+    rep_row = torch.ones((fed_size,), dtype=torch.float32, device=meta)
+    return round_fn, (params, rep_row, val)
 
 
 def init_federation(cfg: ArchConfig, fed_size: int, generator, opt=None,

@@ -31,6 +31,12 @@ batched P2P call that skips ranks undefined). Gloo moves host memory only,
 so a CUDA payload is staged through the host there; the compute stays on
 the card. ``WIRE`` counts, per process, the bytes and messages sent and
 the seconds spent in ``tree_ppermute`` (packing, staging and waiting).
+
+The dry-run cell report traces one node's round on the meta device over a
+``launch.mesh.AbstractMesh`` (no process group): there each exchange
+returns empty meta tensors of the received shapes and records its payload
+bytes with ``launch.op_cost.record_collective`` ("collective-permute"),
+and nothing moves or is counted in ``WIRE``.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from repro_torch.core import compression, fedavg
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.reputation import ReputationImpl
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import op_cost
 
 WIRE: collections.Counter = collections.Counter()
 # NCCL groups that have had their first collective (see tree_ppermute)
@@ -64,14 +71,19 @@ def tree_ppermute(tree_, group, perm):
     ``group=None`` is the default group.
 
     The leaves travel as one byte buffer, widest dtype first (so each
-    leaf's offset is aligned for its dtype): one message a step."""
+    leaf's offset is aligned for its dtype): one message a step. A meta
+    tree (the dry-run cell report) moves nothing: see the module doc."""
+    leaves = tree.leaves(tree_)
+    if leaves and leaves[0].is_meta:
+        op_cost.record_collective(
+            "collective-permute", sum(x.numel() * x.element_size() for x in leaves))
+        return tree.map(torch.empty_like, tree_)
     group = dist.group.WORLD if group is None else group
     me = dist.get_rank(group)
     dsts = [d for s, d in perm if s == me]
     srcs = [s for s, d in perm if d == me]
     if len(dsts) > 1 or len(srcs) > 1:
         raise ValueError(f"perm {perm} is not a permutation")
-    leaves = tree.leaves(tree_)
     order = sorted(range(len(leaves)), key=lambda i: -leaves[i].element_size())
     sizes = [leaves[i].numel() * leaves[i].element_size() for i in order]
     dev = leaves[0].device
@@ -142,7 +154,8 @@ def make_gossip_round(
     ``mesh``: a ``launch.mesh.make_fed_mesh`` mesh, whose federation dim's
     group carries the round, or the federation's process group itself
     (default: the default process group; with no group up, ``fed_size``
-    must be 1). ``topology`` is any
+    must be 1). A ``launch.mesh.AbstractMesh`` runs node 0's round with no
+    group, for a meta trace (the dry-run cell report). ``topology`` is any
     ``topology.Topology`` over ``fed_size`` nodes (default: the
     bidirectional ring); the round sends ``gossip_schedule(topology, ttl)
     .num_collectives`` messages a rank at most.
@@ -179,8 +192,11 @@ def make_gossip_round(
                 for i in range(fed_size)]
 
     def gossip_round(params, rep_row, val_batch):
-        group = mesh_lib.fed_group(mesh)
-        size = dist.get_world_size(group) if group is not None else 1
+        if isinstance(mesh, mesh_lib.AbstractMesh):
+            group, size = None, fed_size
+        else:
+            group = mesh_lib.fed_group(mesh)
+            size = dist.get_world_size(group) if group is not None else 1
         if size != fed_size:
             raise ValueError(
                 f"the federation group has {size} ranks, fed_size={fed_size}")

@@ -15,5 +15,17 @@ import collections
 LAUNCHES: collections.Counter = collections.Counter()
 
 
+# the op-cost walkers that take report_meta's events while they trace
+META_SINKS: list = []
+
+
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def report_meta(kernel: str, *, flops: float, nbytes: float) -> None:
+    """The work of one wrapper call on meta tensors: ``flops`` and the
+    ``nbytes`` the kernel it would launch (named as ``LAUNCHES`` names it)
+    would read and write. Given to every walker that is tracing."""
+    for sink in META_SINKS:
+        sink(kernel, flops=flops, nbytes=nbytes)

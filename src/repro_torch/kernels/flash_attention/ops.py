@@ -21,6 +21,12 @@ encode or launch raises, and the call is never retried on the other one.
 ``LAUNCHES["flash_attention"]`` counts every launch of either kernel,
 ``LAUNCHES["flash_attention_sm90"]`` the sm90 kernel's alone.
 
+Meta tensors (the dry-run cell report's trace) take neither route: the
+wrapper returns empty meta outputs of the kernel's shapes and reports the
+kernel's work to ``kernels.report_meta`` (``_report_meta``): 4 B H Dh FLOPs
+a kept (query, key) pair, Q.K and P.V, over the pairs the causal mask and
+the window keep; q, k, v read once and O (and the lse) written once.
+
 ``return_lse=True`` has the kernel also write each row's log-sum-exp,
 (B, H, Sq) fp32, ``m + log(max(l, 1e-37))`` from its running max m and
 denominator l, which the training backward reads; a call without it passes
@@ -28,9 +34,10 @@ a null pointer and the kernel writes none.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, report_meta
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 MAX_HEAD_DIM = 256
@@ -53,6 +60,26 @@ def _variant(q, k, v) -> str:
     return "sm90"
 
 
+def kept_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs one head keeps: query i (at position i, as the
+    kernels place both axes from 0) sees keys j <= i under ``causal`` and
+    j > i - ``window`` under a window."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i + 1, Skv) if causal else np.full_like(i, Skv)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _report_meta(q, k, v, out, lse, causal, window) -> None:
+    B, Sq, H, Dh = q.shape
+    pairs = kept_pairs(Sq, k.shape[1], causal, window)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out))
+    if lse is not None:
+        nbytes += lse.numel() * lse.element_size()
+    report_meta("flash_attention_sm90" if _variant(q, k, v) == "sm90"
+                else "flash_attention", flops=4.0 * B * H * Dh * pairs, nbytes=nbytes)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
                     return_lse=False):
     """Masked softmax attention; query head h reads kv head h // (H // KH).
@@ -70,6 +97,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     scale = Dh ** -0.5 if scale is None else float(scale)
+    if q.is_meta:
+        out = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device)
+        lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+               if return_lse else None)
+        _report_meta(q, k, v, out, lse, causal, window)
+        return (out, lse) if return_lse else out
     if not q.is_cuda:
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale,
                              return_lse=return_lse)

@@ -13,7 +13,10 @@ segment table of ``table``:
   table. ``quantize_flat`` / ``dequantize_flat`` cut a flat payload into
   256-column rows as the JAX package's ``quantize/ops.py`` does.
 
-CUDA tensors go to the kernels (or raise), CPU tensors to ``ref``. The
+CUDA tensors go to the kernels (or raise), CPU tensors to ``ref``. Meta
+tensors (the dry-run cell report's trace) go to neither: a call returns
+empty meta outputs of the kernel's shapes and reports the bytes its
+launches would read and write to ``kernels.report_meta``. The
 table's shape part is cached by the tree's (shape, dtype) signature; a call
 fills in the pointers and passes the table by value (no copy to the card).
 """
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import LAUNCHES, build, report_meta
 from repro_torch.kernels.quantize import table
 from repro_torch.kernels.quantize.ref import (dequantize_ref, dequantize_tree_ref,
                                               quantize_ref, quantize_tree_ref,
@@ -55,6 +58,16 @@ def _fill(group, x, q, s, flags):
     return tab
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _report(kind: str, plan, nbytes: int) -> None:
+    """A meta call: ``kind``'s launches over ``plan`` (one a group)."""
+    for _ in plan.groups:
+        report_meta(kind, flops=0.0, nbytes=nbytes / len(plan.groups))
+
+
 def _check_cuda(device) -> None:
     if device.type != "cuda":
         raise ValueError(f"the quantize kernels run on CUDA tensors, not {device}")
@@ -75,10 +88,13 @@ def quantize_tree(leaves, block: int = BLOCK_COLS):
     device = table.device_of(leaves)
     if device.type == "cpu":
         return quantize_tree_ref(leaves, block)
-    _check_cuda(device)
     plan = table.plan_for(leaves, block)
     q, s = table.wire_arenas(plan, device)
-    _quantize_into(plan, table.kernel_inputs(plan, leaves), q, s)
+    if device.type == "meta":
+        _report("quantize", plan, _nbytes([*leaves, q, s]))
+    else:
+        _check_cuda(device)
+        _quantize_into(plan, table.kernel_inputs(plan, leaves), q, s)
     return table.wire_views(plan, q, s)
 
 
@@ -100,8 +116,13 @@ def dequantize_tree(pairs, specs):
     device = table.device_of([t for pair in pairs for t in pair])
     if device.type == "cpu":
         return dequantize_tree_ref(pairs, specs)
-    _check_cuda(device)
     plan = table.plan_for_wire(pairs, specs)
+    if device.type == "meta":
+        _, outs = table.out_views(plan, device)
+        outs = table.cast_back(outs, [dt for _, dt in specs])
+        _report("dequantize", plan, _nbytes([t for pair in pairs for t in pair] + outs))
+        return outs
+    _check_cuda(device)
     if any(q.dtype != torch.int8 for q, _ in pairs):
         raise TypeError("dequantize takes int8 q")
     pairs = [(q.contiguous(), (s if s.dtype in table.KERNEL_DTYPES
@@ -122,9 +143,15 @@ def roundtrip_tree(leaves, block: int = BLOCK_COLS):
     device = table.device_of(leaves)
     if device.type == "cpu":
         return roundtrip_tree_ref(leaves, block)
-    _check_cuda(device)
     plan = table.plan_for(leaves, block)
     q, s = table.wire_arenas(plan, device)
+    if device.type == "meta":
+        _, outs = table.out_views(plan, device)
+        outs = table.cast_back(outs, [x.dtype for x in leaves])
+        _report("quantize", plan, _nbytes([*leaves, q, s]))
+        _report("dequantize", plan, _nbytes([q, s, *outs]))
+        return outs
+    _check_cuda(device)
     _quantize_into(plan, table.kernel_inputs(plan, leaves), q, s)
     qb, sb = q.data_ptr(), s.data_ptr()
     return _dequantize_into_arena(
@@ -136,7 +163,7 @@ def quantize_rows(x):
     """x (R, C) fp32|bf16, C <= 256 -> (q int8 (R, C), scales fp32 (R, 1))."""
     if x.dim() != 2:
         raise ValueError(f"quantize_rows takes (R, C), got {tuple(x.shape)}")
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return quantize_ref(x)
     rows, cols = x.shape
     if x.dtype not in table.KERNEL_DTYPES:
@@ -146,7 +173,9 @@ def quantize_rows(x):
     x = x.contiguous()
     q = torch.empty((rows, cols), dtype=torch.int8, device=x.device)
     scales = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
-    if rows == 0:
+    if x.is_meta:
+        report_meta("quantize", flops=0.0, nbytes=_nbytes([x, q, scales]))
+    if rows == 0 or x.is_meta:
         return q, scales
     (g,) = table.plan((((rows, cols), x.dtype, cols),)).groups
     _launch("quantize", g, _fill(g, [x.data_ptr()], [q.data_ptr()],
@@ -161,7 +190,7 @@ def dequantize_rows(q, scales, dtype=torch.float32):
         raise ValueError(f"dequantize_rows takes (R, C), got {tuple(q.shape)}")
     if dtype not in table.KERNEL_DTYPES:
         raise TypeError(f"dequantize writes fp32 or bf16, not {dtype}")
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return dequantize_ref(q, scales, dtype)
     rows, cols = q.shape
     if q.dtype != torch.int8:
@@ -175,7 +204,9 @@ def dequantize_rows(q, scales, dtype=torch.float32):
         scales = scales.to(torch.float32)
     scales = scales.contiguous()
     out = torch.empty((rows, cols), dtype=dtype, device=q.device)
-    if rows == 0:
+    if q.is_meta:
+        report_meta("dequantize", flops=0.0, nbytes=_nbytes([q, scales, out]))
+    if rows == 0 or q.is_meta:
         return out
     (g,) = table.plan((((rows, cols), dtype, cols),)).groups
     flags = table.S_BF16 if scales.dtype == torch.bfloat16 else 0

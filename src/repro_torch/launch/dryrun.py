@@ -1,10 +1,25 @@
-"""The dry-run command line's federation runs: one federation, or a batched
-grid of them, through the vectorized engine.
+"""The dry-run command line: a cell report for every (arch x shape x mesh)
+cell, or a federation run.
 
-Port of the JAX package's ``repro.launch.dryrun`` entry points that run a
-federation, with every option of its command line under the same name,
-default, choices and meaning:
+Port of the JAX package's ``repro.launch.dryrun``, with every option of
+its command line under the same name, default, choices and meaning:
 
+  * ``--engine mesh`` (the default; ``--arch``/``--shape`` or ``--all``,
+    ``--multi-pod``, ``--dfl``, ``--gossip-schedule``, ``--print-hlo``):
+    the cell report. JAX lowers and compiles each cell for a 16 x 16 (or
+    2 x 16 x 16) mesh of host devices and reads XLA's memory and cost
+    analyses. The eager port has nothing to compile: ``lower_cell`` builds
+    the step's inputs on the meta device (no weight drawn, no memory
+    allocated), traces the port's own step (``make_train_step``,
+    ``make_prefill``, ``make_decode``, or with ``--dfl`` one gossip round)
+    once under the op-cost walker (``launch.op_cost``) at one device's
+    share, and counts what it dispatches; ``cell_record`` does it for an
+    ``InputShape`` and an abstract mesh. The record has the JAX record's
+    keys, with ``lower_s`` the trace's seconds and ``compile_s`` 0.0
+    (nothing compiles), plus ``device`` ("meta": the route allocates
+    nothing anywhere, so ``--device`` does not touch it) and ``hw`` (the
+    roofline's card figures, ``launch.roofline.H100``). ``--print-hlo``
+    prints the walker's per-op table, the counterpart of the HLO text;
   * ``--engine lax``: one federation (a registered scenario under a
     registered attack) through ``chain.simlax.LaxSimulator``: the quick
     sanity pass for the §VI-D dynamics at a chosen scale, topology and
@@ -16,20 +31,24 @@ default, choices and meaning:
     run a shape-compatible batch (``chain.sweeps``), with its frontier
     tables.
 
-Each run appends one JSON record to ``--out``, with the keys of the JAX
-package's record and the device it ran on.
+Each cell or run appends one JSON record to ``--out``.
 
-The JAX default, ``--engine mesh`` (with ``--arch``, ``--shape``, ``--all``,
-``--multi-pod``, ``--dfl``, ``--gossip-schedule`` and ``--print-hlo``),
-lowers and compiles XLA programs and reports their cost analysis. The
-eager port has nothing to lower: that report is another slice
-(``CELL_REPORT_ITEM``), and until then these options raise
-``NotImplementedError``.
+A record holds one device of the named mesh. Bytes a device: the
+arguments (params in fp32, the optimizer state for train, the cache for
+prefill and decode, the batch; each leaf over its ``sharding.shard_factor``
+under the cell's rules), the outputs (counted the same way), temp (the
+walker's live-bytes peak above the arguments) and peak (argument + temp).
+FLOPs and bytes a device follow the walker's rule (``launch.op_cost``).
+Collective bytes a device, by kind, are a model of the tensor-parallel
+step, not a trace (``collective_model``).
 
-``--device`` defaults to ``cuda`` and raises without it; ``--device cpu``
-runs on the CPU.
+For the federation runs ``--device`` defaults to ``cuda`` and raises
+without it; ``--device cpu`` runs on the CPU.
 
 Usage:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b \\
+        --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--dfl]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --engine lax \\
         --scenario lenet --attack signflip --nodes 16 --ticks 48 \\
         --topology kregular --ttl 2 --compress int8 --device cpu
@@ -41,26 +60,33 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 import time
+import traceback
 
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import sharding as sh
+from repro_torch import tree
 from repro_torch.chain import attacks, scenarios, simlax, sweeps
-from repro_torch.configs import ARCH_IDS, SHAPES
+from repro_torch.configs import ARCH_IDS, SHAPES, cell_status, get_config
+from repro_torch.configs.base import ATTN, ENC_ATTN, LOCAL_ATTN, SLSTM
+from repro_torch.core import compression
+from repro_torch.core import dfl as dfl_lib
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.reputation import get as get_rep
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import op_cost, roofline
+from repro_torch.models import layers as L
+from repro_torch.models import transformer
+from repro_torch.train import step as step_lib
 
-CELL_REPORT_ITEM = "ROADMAP.md queue 1, item 13c, 'the dry-run cell report'"
 # seconds before every rank of a --delivery sharded run is killed
 SPAWN_TIMEOUT_S = 1800.0
-# the --engine mesh options: (attribute, option) of the XLA cell report
-_CELL_OPTIONS = (("arch", "--arch"), ("shape", "--shape"), ("all", "--all"),
-                 ("multi_pod", "--multi-pod"), ("dfl", "--dfl"),
-                 ("print_hlo", "--print-hlo"))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,12 +96,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--dfl", action="store_true",
-                    help="lower the DFL gossip round instead of the plain step "
-                    f"(not ported: {CELL_REPORT_ITEM})")
+                    help="lower the DFL gossip round instead of the plain step")
     ap.add_argument("--engine", default="mesh", choices=("mesh", "lax"),
-                    help="mesh: the XLA cell report (default; not ported: "
-                    f"{CELL_REPORT_ITEM}); lax: run the vectorized tick "
-                    "simulator end-to-end")
+                    help="mesh: the cell report, traced on the meta device "
+                    "(default); lax: run the vectorized tick simulator "
+                    "end-to-end")
     ap.add_argument("--scenario", default=None, choices=scenarios.names(),
                     help="registered federation scenario for --engine lax")
     ap.add_argument("--model", default="toy", choices=scenarios.names(),
@@ -154,7 +179,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", default="experiments/dryrun.json")
     ap.add_argument("--print-hlo", action="store_true")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default: raises without a GPU), cuda:i or cpu")
+                    help="--engine lax / --sweep: cuda (default: raises "
+                    "without a GPU), cuda:i or cpu (the cell report runs on "
+                    "the meta device whatever this says)")
     return ap
 
 
@@ -398,16 +425,440 @@ def run_sweep_cli(args, dev):
     return 0
 
 
+# ------------------------------------------------------------------ cell report
+# the metrics a train step (loss, accuracy, aux, grad_norm) or a gossip
+# round (its node's four) returns beside the state: fp32 scalars
+_METRICS = 4
+
+
+def _leaf_bytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _sharded_bytes(values, axes, mesh, rules) -> float:
+    """Bytes a device holds of ``values`` (a tree, None leaves allowed)
+    whose logical axes are ``axes``: each leaf over its shard factor."""
+    total = 0.0
+    for a, x in zip(tree.leaves(axes, is_leaf=sh.is_axes), tree.leaves(values)):
+        if x is None:
+            continue
+        spec = sh.logical_to_spec(a, mesh, rules, tuple(x.shape))
+        total += _leaf_bytes(x) / sh.shard_factor(spec, mesh)
+    return total
+
+
+def _non_model(entry, mesh) -> int:
+    """The split of one spec entry over the mesh axes other than
+    ``model`` (the walker divides by ``model`` itself)."""
+    if entry is None:
+        return 1
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return math.prod(mesh.shape[a] for a in names if a != "model")
+
+
+def _entry(spec, i):
+    return spec[i] if i < len(spec) else None
+
+
+def _model_size(mesh) -> int:
+    return mesh.shape.get("model", 1)
+
+
+def state_bytes(cfg, shape, mesh, rules, *, dfl=None):
+    """(argument, output) bytes a device of one cell's step (see the
+    module doc); ``dfl`` a DFLConfig for the gossip round's."""
+    if dfl is not None:
+        fed = mesh.shape[dfl_lib.fed_axis_for(mesh)]
+        params, axes = dfl_lib.abstract_fed_params(cfg, fed)
+        vb = {k: torch.empty(dims, dtype=dt, device=step_lib.META)
+              for k, (dims, dt) in dfl_lib.val_batch_specs(cfg, dfl, fed).items()}
+        rep = torch.empty((fed, fed), dtype=torch.float32, device=step_lib.META)
+        p_b = _sharded_bytes(params, axes, mesh, rules)
+        rep_b = _sharded_bytes(rep, (sh.FED, None), mesh, rules)
+        vb_b = _sharded_bytes(vb, dfl_lib.val_batch_axes(vb), mesh, rules)
+        return p_b + rep_b + vb_b, p_b + rep_b + 4 * _METRICS
+    batch = step_lib.input_specs(cfg, shape)
+    b_b = _sharded_bytes(batch, step_lib.batch_axes(cfg, shape), mesh, rules)
+    if shape.kind == "train":
+        state, axes = step_lib.abstract_train_state(cfg)
+        s_b = _sharded_bytes(state, axes, mesh, rules)
+        return s_b + b_b, s_b + 4 * _METRICS
+    params, p_axes = step_lib.abstract_params(cfg)
+    cache, c_axes = step_lib.abstract_cache(cfg, shape.global_batch, shape.seq_len)
+    p_b = _sharded_bytes(params, p_axes, mesh, rules)
+    c_b = _sharded_bytes(cache, c_axes, mesh, rules)
+    logits = torch.empty((shape.global_batch, cfg.vocab_size), device=step_lib.META)
+    lg_b = _sharded_bytes(logits, (sh.BATCH, L.VOCAB), mesh, rules)
+    pos_b = 4 if shape.kind == "decode" else 0      # the int32 position
+    return p_b + c_b + b_b + pos_b, lg_b + c_b
+
+
+def _device_shares(cfg, shape, mesh, rules, dfl):
+    """(rows, seq) one device traces: the batch over the non-model axes of
+    its BATCH spec; for decode the cache's sequence over the non-model
+    axes of its KV_SEQ spec; for a gossip round the validation batch."""
+    if dfl is not None:
+        spec = sh.logical_to_spec((sh.FED, sh.BATCH), mesh, rules,
+                                  (mesh.shape[dfl_lib.fed_axis_for(mesh)],
+                                   dfl.val_rows))
+        return dfl.val_rows // _non_model(_entry(spec, 1), mesh), dfl.val_seq
+    B, S = shape.global_batch, shape.seq_len
+    rows = B // _non_model(_entry(sh.logical_to_spec(
+        (sh.BATCH, sh.SEQ), mesh, rules, (B, S)), 0), mesh)
+    if shape.kind == "decode":
+        S //= _non_model(_entry(sh.logical_to_spec(
+            (sh.BATCH, sh.KV_SEQ), mesh, rules, (B, S)), 1), mesh)
+    return rows, S
+
+
+def _trace(cfg, shape, mesh, rows, seq, dfl):
+    """One step at (rows, seq) on the meta device under the walker:
+    its totals."""
+    if dfl is not None:
+        round_fn, args = dfl_lib.abstract_gossip_round(
+            cfg, shape, mesh, dataclasses.replace(dfl, val_seq=seq), rows)
+        run = lambda: round_fn(*args)
+    elif shape.kind == "train":
+        state, _ = step_lib.abstract_train_state(cfg)
+        args = (state, step_lib.input_specs(cfg, shape, rows, seq))
+        run = lambda: step_lib.make_train_step(cfg)(*args)
+    else:
+        params, _ = step_lib.abstract_params(cfg)
+        cache, _ = step_lib.abstract_cache(cfg, rows, seq)
+        batch = step_lib.input_specs(cfg, shape, rows, seq)
+        if shape.kind == "prefill":
+            args = (params, batch, cache)
+            run = lambda: step_lib.make_prefill(cfg)(*args)
+        else:
+            args = (params, cache, batch["tokens"])
+            run = lambda: step_lib.make_decode(cfg)(*args, seq - 1)
+    # every trace makes the cached rope frequencies itself, so that each
+    # one counts the same constants whatever ran before it
+    L.rope_cache_clear()
+    with op_cost.OpCost(known=args) as walker:
+        run()
+    return walker.totals()
+
+
+def _seq_loop(cfg, shape) -> bool:
+    """Whether the step runs a Python loop over the sequence (the sLSTM's
+    step loop), whose trace is extrapolated from two lengths."""
+    return shape.kind != "decode" and SLSTM in cfg.block_pattern
+
+
+def traced_counts(cfg, shape, mesh, rules, *, dfl=None, full=False):
+    """(counts, raw, trips): a device's walker counts for the whole step
+    (before the model-axis split), the first trace's, and the trip counts
+    applied. Traces 1 and 2 units and extrapolates to the config's unit
+    count (n units: X1 + (n - 1)(X2 - X1)). A sequence loop (the sLSTM's)
+    is extrapolated from two lengths a and b, two and three
+    ``scan_chunk``s (from the mLSTM's second chunk on each adds the same:
+    the first carry needs no gradient); there the unit increment's slope
+    in S comes from 1- and 0-unit traces, so that only three traces run
+    the loop: X(n, S) = X(1, S) + (n - 1)(X(2, a) - X(1, a) + [X(1, S) -
+    X(1, a)] - [X(0, S) - X(0, a)]), each X(u, S) linear from a and b.
+    ``full`` traces the whole depth and length instead (the check of the
+    extrapolation)."""
+    rows, seq = _device_shares(cfg, shape, mesh, rules, dfl)
+    n_units, n_rest, _ = transformer.unit_layout(cfg)
+    ul = transformer.unit_len(cfg)
+    loop = _seq_loop(cfg, shape) and not full
+    if loop and any(k in (ATTN, LOCAL_ATTN, ENC_ATTN) for k in cfg.block_pattern):
+        raise ValueError("a sequence loop beside attention is not linear in S")
+
+    def at(units, s):
+        return _trace(cfg.scaled(num_layers=units * ul + n_rest), shape, mesh,
+                      rows, s, dfl)
+
+    if full or n_units <= 2:
+        units = [] if full or n_units == 0 else [n_units]
+        if not loop:
+            first = at(n_units, seq)
+            return first, first, units
+        a, b = 2 * cfg.scan_chunk, 3 * cfg.scan_chunk
+        first, t = at(n_units, a), (seq - a) / (b - a)
+        return (op_cost.combine([(1 - t, first), (t, at(n_units, b))]), first,
+                units + [seq])
+    first = at(1, seq if not loop else 2 * cfg.scan_chunk)
+    if not loop:
+        return op_cost.extrapolate(first, at(2, seq), n_units), first, [n_units]
+    a, b = 2 * cfg.scan_chunk, 3 * cfg.scan_chunk
+    t, n = (seq - a) / (b - a), n_units
+    terms = [(n * (1 - t) - 2 * (n - 1), first), (n * t, at(1, b)),
+             (n - 1, at(2, a)), ((n - 1) * t, at(0, a)), (-(n - 1) * t, at(0, b))]
+    return op_cost.combine(terms), first, [n_units, seq]
+
+
+def _row_split_products(cfg, mesh, rules) -> dict:
+    """The products whose contracting dim is split over ``model`` (a
+    weight whose input axis resolves to ``model``: attention's o, an FFN's
+    down, RG-LRU's w_r / w_i / out, mLSTM's inner projections, the
+    vocab-split embedding lookup); each leaves fp32 partial sums a device
+    to all-reduce. ``{"features": ..., "count": ...}`` over all layers and
+    over the stacked units alone (``unit_*``): a product's output features
+    are its weight's last dim (o: d_model after contracting heads x
+    head_dim; the lookup: a d_model row a token). The unembedding (x @
+    table.T) contracts over d_model and is not one; the expert stacks go
+    through the all-to-all."""
+    params, axes = step_lib.abstract_params(cfg)
+    out = dict(features=0.0, count=0, unit_features=0.0, unit_count=0)
+    for key in ("embed", "units", "rest"):
+        if key not in axes:
+            continue
+        stacked = key == "units"
+        for a, x in zip(tree.leaves(axes[key], is_leaf=sh.is_axes),
+                        tree.leaves(params[key])):
+            dims = a[1:] if stacked else a
+            if len(dims) < 2 or dims[0] in (L.EXPERTS, L.CONV):
+                continue
+            entry = _entry(sh.logical_to_spec(a, mesh, rules, tuple(x.shape)),
+                           1 if stacked else 0)
+            if entry is None or "model" not in (
+                    entry if isinstance(entry, tuple) else (entry,)):
+                continue
+            n = x.shape[0] if stacked else 1
+            out["features"] += n * x.shape[-1]
+            out["count"] += n
+            if stacked:
+                out["unit_features"] += n * x.shape[-1]
+                out["unit_count"] += n
+    return out
+
+
+def collective_model(cfg, shape, mesh, rules, *, dfl=None, receipts=0):
+    """{kind: [bytes, count]}: the collectives a device joins, with their
+    operand bytes, for the
+    tensor-parallel step the walker's split stands for. With ``model`` > 1:
+    every product whose contracting dim is split over ``model`` all-reduces
+    its fp32 partial sums (``_row_split_products``' features x tokens x 4 bytes) once
+    a forward pass, once in the backward (its column-split partner's input
+    gradient, the same size) and once more under remat="full" recompute
+    (the stacked units); the vocab-split unembedding adds one (tokens x
+    d_model) in the backward; a decode over a cache whose sequence is split
+    over ``model`` reduces each global attention layer's partial output and
+    softmax sums. An MoE layer's dispatch scatter and combine gather cross
+    the expert split the same way, as fp32 partial sums of its (rows x
+    experts x capacity x d_model) buffer (decode dispatches the whole batch
+    as one row), an all-to-all each a pass. Training adds the fp32
+    gradients' all-reduce over the batch axes; FSDP the params' all-gather
+    (bf16) a pass. A gossip round's
+    ``receipts`` are forward passes of the validation batch."""
+    out = {}
+    model = _model_size(mesh)
+    rows, seq = _device_shares(cfg, shape, mesh, rules, dfl)
+    train = shape.kind == "train" and dfl is None
+    decode = shape.kind == "decode" and dfl is None
+    tokens = rows * (1 if decode else seq)
+    fwd = receipts if dfl is not None else 1
+    recompute = train and cfg.remat == "full"
+    passes = fwd + (2 if recompute else 1 if train else 0)
+    if model > 1:
+        rs = _row_split_products(cfg, mesh, rules)
+        feats = (rs["features"] * fwd + (rs["features"] + cfg.d_model if train else 0)
+                 + (rs["unit_features"] if recompute else 0))
+        count = (rs["count"] * fwd + (rs["count"] + 1 if train else 0)
+                 + (rs["unit_count"] if recompute else 0))
+        ar = tokens * 4 * feats
+        kv = _entry(sh.logical_to_spec((sh.BATCH, sh.KV_SEQ), mesh, rules,
+                                       (shape.global_batch, shape.seq_len)), 1)
+        if decode and kv is not None and "model" in (
+                kv if isinstance(kv, tuple) else (kv,)):
+            n_global = sum(k == ATTN for k in cfg.layer_kinds())
+            ar += n_global * rows * cfg.num_heads * (cfg.resolved_head_dim + 2) * 4
+            count += n_global
+        out["all-reduce"] = [ar, count]
+        if cfg.moe is not None:
+            m = cfg.moe
+            n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+            n_rows, per_row = (1, shape.global_batch) if decode else (rows, seq)
+            cap = max(1, math.ceil(per_row * m.top_k / m.num_experts
+                                   * m.capacity_factor))
+            buf = n_rows * m.num_experts * cap * cfg.d_model * 4
+            out["all-to-all"] = [2.0 * buf * n_moe * passes, 2 * n_moe * passes]
+    if train and any(mesh.shape.get(a, 1) > 1 for a in ("pod", "data")):
+        params, axes = step_lib.abstract_params(cfg)
+        ar, count = out.get("all-reduce", [0.0, 0])
+        out["all-reduce"] = [ar + _sharded_bytes(params, axes, mesh, rules),
+                             count + 1]
+    if cfg.fsdp and dfl is None and mesh.shape.get("data", 1) > 1:
+        params, axes = step_lib.abstract_params(cfg)
+        out["all-gather"] = [_sharded_bytes(params, axes, mesh, rules) / 2 * passes,
+                             len(tree.leaves(params)) * passes]
+    return out
+
+
+def cell_record(cfg, shape, mesh, *, arch=None, dfl=False, extra_rules=None,
+                dfl_cfg=None, hw=roofline.H100):
+    """(record, counts): the cell report of ``cfg`` at ``shape`` (an
+    ``InputShape``) for one device of ``mesh`` (an abstract mesh), and the
+    walker's counts behind it for the whole step, before the model-axis
+    split (``op_cost.op_table`` prints them; ``kernel_calls`` counts the
+    kernel wrappers' calls a step, the flash forward under its route's
+    name: ``flash_attention_sm90`` the sm90 kernel, ``flash_attention``
+    the simt kernel)."""
+    t0 = time.perf_counter()
+    sched_info = None
+    d = None
+    if dfl:
+        d = dfl_cfg or dfl_lib.DFLConfig()
+        fed_axis = dfl_lib.fed_axis_for(mesh)
+        sched_info = dfl_lib.schedule_report(d, mesh.shape[fed_axis], strict=True)
+        print(f"[dryrun] gossip schedule: topology={sched_info['topology']} "
+              f"ttl={sched_info['ttl']} schedule={sched_info['schedule']} "
+              f"coverage={sched_info['coverage']:.3f} "
+              f"num_collectives={sched_info['num_collectives']}")
+        if shape.kind != "train":
+            raise ValueError("the DFL gossip round applies to training shapes")
+        rules = dfl_lib.gossip_rules(cfg, fed_axis)
+    else:
+        rules = step_lib.rules_for(cfg, shape)
+    if extra_rules:
+        rules.update(extra_rules)
+    argument, output = state_bytes(cfg, shape, mesh, rules, dfl=d)
+    counts, raw, trips = traced_counts(cfg, shape, mesh, rules, dfl=d)
+    model = _model_size(mesh)
+    per_dev = op_cost.scale(counts, 1.0 / model)
+    raw_dev = op_cost.scale(raw, 1.0 / model)
+    n_steps = round(counts["collective_count"].get("collective-permute", 0))
+    model_coll = collective_model(cfg, shape, mesh, rules, dfl=d, receipts=n_steps)
+    coll = {k: v[0] for k, v in model_coll.items()}
+    count = {k: v[1] for k, v in model_coll.items()}
+    if d is not None:
+        # the exchanges carry a whole replica's payload: a device sends its
+        # shard of each leaf
+        params, axes = step_lib.abstract_params(cfg)
+        coll["collective-permute"] = (
+            counts["collective_bytes"].get("collective-permute", 0.0)
+            * _sharded_bytes(params, axes, mesh, rules)
+            / sum(_leaf_bytes(x) for x in tree.leaves(params)))
+        count["collective-permute"] = n_steps
+    cost = {"flops": per_dev["flops"], "bytes": per_dev["bytes"],
+            "collective_bytes": coll, "collective_count": count,
+            "scan_trip_counts": trips}
+    terms = roofline.terms(cost, raw_dev, hw)
+    temp = per_dev["peak_live"]
+    params, _ = step_lib.abstract_params(cfg)
+    total_params = transformer.param_count(params)
+    mf = roofline.model_flops(cfg, total_params, params["embed"]["table"].numel(),
+                              shape)
+    t_trace = time.perf_counter() - t0
+    flops_global = terms["hlo_flops"] * mesh.size
+    record = {
+        "arch": arch or cfg.name, "shape": shape.name, "status": "ok",
+        "mesh": mesh.describe(),
+        "mesh_axes": list(mesh.axis_names),
+        "chips": mesh.size,
+        "dfl": bool(dfl),
+        "topology": d.topology if d is not None else None,
+        "gossip_schedule": sched_info,
+        "step_kind": "gossip" if dfl else shape.kind,
+        "params": int(total_params),
+        "bytes_per_device": {"argument": argument, "output": output,
+                             "temp": temp, "peak": argument + temp},
+        "compress": d.compress if d is not None else None,
+        "permute_bytes": (coll.get("collective-permute", 0.0) if dfl else None),
+        "roofline": terms,
+        "model_flops_global": mf,
+        "useful_flops_ratio": (mf / flops_global) if flops_global else None,
+        "lower_s": round(t_trace, 1), "compile_s": 0.0,
+        "device": "meta",
+        "hw": dict(hw),
+    }
+    return record, counts
+
+
+def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+               dfl: bool = False, extra_rules=None, cfg_overrides=None,
+               mesh=None, dfl_cfg=None, hw=roofline.H100):
+    """(record, counts) of one cell (``cell_record``), or a skip record and
+    None when ``cell_status`` rules the cell out. ``mesh`` (an abstract
+    mesh) overrides the production mesh; ``cfg_overrides`` scale the
+    config as the JAX function's do."""
+    cfg = get_config(arch)
+    if cfg_overrides:
+        cfg = cfg.scaled(**cfg_overrides)
+    shape = SHAPES[shape_name]
+    ok, why = cell_status(cfg, shape)
+    if not ok:
+        return {"arch": arch, "shape": shape_name, "status": "skip",
+                "reason": why}, None
+    if mesh is None:
+        mesh = mesh_lib.abstract_production_mesh(multi_pod=multi_pod)
+    return cell_record(cfg, shape, mesh, arch=arch, dfl=dfl,
+                       extra_rules=extra_rules, dfl_cfg=dfl_cfg, hw=hw)
+
+
+def run_cells(ap, args) -> int:
+    """--engine mesh: one record a cell, appended to --out as it is made;
+    cells already there (by the JAX key: arch, shape, mesh, dfl, topology)
+    are skipped. Exits 1 when a cell errs."""
+    if args.all:
+        cells = [(arch, shape) for arch in ARCH_IDS for shape in SHAPES]
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch/--shape or --all required")
+        cells = [(args.arch, args.shape)]
+    dfl_cfg = None
+    if args.dfl:
+        dfl_cfg = dfl_lib.DFLConfig(ttl=args.ttl, topology=args.topology,
+                                    topology_degree=args.topology_degree,
+                                    schedule=args.gossip_schedule,
+                                    compress=args.compress)
+    results = []
+    if os.path.exists(args.out):
+        with open(args.out) as f:
+            results = json.load(f)
+    topo_tag = args.topology if args.dfl else None
+    done = {(r["arch"], r["shape"], r.get("mesh"), r.get("dfl", False),
+             r.get("topology", "ring" if r.get("dfl") else None))
+            for r in results if r.get("status") in ("ok", "skip")
+            and "arch" in r}
+    mesh_tag = "2x16x16" if args.multi_pod else "16x16"
+    for arch, shape in cells:
+        key = (arch, shape, mesh_tag, args.dfl, topo_tag)
+        skip_key = (arch, shape, None, args.dfl, topo_tag)
+        if key in done or skip_key in done:
+            print(f"[dryrun] {arch} x {shape} ({mesh_tag}) cached, skipping")
+            continue
+        print(f"[dryrun] {arch} x {shape} mesh={mesh_tag} dfl={args.dfl} "
+              f"topology={topo_tag} ...", flush=True)
+        try:
+            rec, counts = lower_cell(arch, shape, multi_pod=args.multi_pod,
+                                     dfl=args.dfl, dfl_cfg=dfl_cfg)
+            if rec["status"] == "ok":
+                rf = rec["roofline"]
+                print(f"  traced in {rec['lower_s']}s; "
+                      f"flops/dev={rf['hlo_flops']:.3e} "
+                      f"coll_bytes/dev={rf['collective_bytes']:.3e} "
+                      f"dominant={rf['dominant']}")
+                print(f"  memory/device: {rec['bytes_per_device']}")
+                print(f"  collectives: {rf['collectives']}")
+                if args.print_hlo:
+                    print(op_cost.op_table(counts))
+            else:
+                print(f"  SKIP: {rec['reason']}")
+        except Exception as e:
+            rec = {"arch": arch, "shape": shape, "mesh": mesh_tag,
+                   "dfl": args.dfl, "status": "error",
+                   "error": f"{type(e).__name__}: {e}"}
+            print(f"  ERROR: {type(e).__name__}: {e}")
+            traceback.print_exc(limit=4)
+        results.append(rec)
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1, default=str)
+    n_ok = sum(1 for r in results if r.get("status") == "ok")
+    n_skip = sum(1 for r in results if r.get("status") == "skip")
+    n_err = sum(1 for r in results if r.get("status") == "error")
+    print(f"[dryrun] done: {n_ok} ok, {n_skip} skip, {n_err} error -> {args.out}")
+    return 1 if n_err else 0
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     if not args.sweep and args.engine != "lax":
-        given = [opt for attr, opt in _CELL_OPTIONS if getattr(args, attr)]
-        raise NotImplementedError(
-            "--engine mesh (the default: lower and compile each arch x shape "
-            "cell and report its cost and memory"
-            + (f"; given {' '.join(given)}" if given else "")
-            + f") is not ported yet: {CELL_REPORT_ITEM}. Run a federation "
-            "with --engine lax or --sweep")
+        return run_cells(ap, args)
     dev = device_lib.resolve(args.device)
     if args.sweep:
         return run_sweep_cli(args, dev)

@@ -12,12 +12,18 @@ NCCL (one rank a card, tensors sent in place), ``"cpu"`` under gloo, which
 moves host memory only (``core.gossip`` stages CUDA tensors through the
 host). Several ranks on one card therefore run under gloo.
 
+The ``abstract_*`` meshes are names and sizes only, with no rank, group or
+device behind them: the dry-run cell report (``launch.dryrun``) resolves
+its sharding rules against them, as the JAX package resolves them against
+forced host devices it never runs on.
+
 ``spawn`` starts the ranks: the counterpart of the JAX package's forced host
 devices (``XLA_FLAGS=--xla_force_host_platform_device_count``). Importing
 this module touches no process group and no device.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import math
 import multiprocessing
@@ -71,6 +77,45 @@ def make_fed_mesh(num_fed: int, data: int = 1, model: int = 1):
 
 def make_test_mesh(data: int = 2, model: int = 2):
     return _mesh((data, model), ("data", "model"))
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes, without ranks: what sharding rules
+    resolve against (``sharding.logical_to_spec``)."""
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def mesh_dim_names(self) -> tuple:
+        return self.axis_names
+
+    def describe(self) -> str:
+        """"16x16": the sizes, as the dry-run record's ``mesh`` gives them."""
+        return "x".join(str(n) for n in self.sizes)
+
+
+def abstract_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """``make_production_mesh``'s names and sizes, with no rank behind them."""
+    if multi_pod:
+        return AbstractMesh(("pod", "data", "model"), (2, 16, 16))
+    return AbstractMesh(("data", "model"), (16, 16))
+
+
+def abstract_fed_mesh(num_fed: int, data: int = 1, model: int = 1) -> AbstractMesh:
+    return AbstractMesh(("fed", "data", "model"), (num_fed, data, model))
+
+
+def abstract_test_mesh(data: int = 2, model: int = 2) -> AbstractMesh:
+    return AbstractMesh(("data", "model"), (data, model))
 
 
 def fed_axis_name(mesh) -> str:

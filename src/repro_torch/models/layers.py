@@ -15,6 +15,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# Logical axis vocabulary (``transformer.param_axes`` names every param
+# dim with these; ``sharding`` maps them to mesh axes).
+EMBED = "embed"        # d_model
+FFN = "ffn"            # feed-forward hidden
+VOCAB = "vocab"
+HEADS = "heads"        # query heads
+KV_HEADS = "kv_heads"
+HEAD_DIM = "head_dim"
+EXPERTS = "experts"
+STACK = "stack"        # stacked-unit leading dim
+RNN = "rnn"            # recurrent hidden width
+CONV = "conv"          # conv kernel taps
+
 _pt = torch.float32  # params kept fp32 (master weights); compute casts
 
 
@@ -118,6 +131,11 @@ def _rope_freqs_on(head_dim, rotary_dim, theta, device):
     # copied to the device once: a copy from host memory synchronises the
     # stream, which at every layer would stall the decode loop on the card
     return torch.from_numpy(rope_freqs(head_dim, rotary_dim, theta)).to(device)
+
+
+def rope_cache_clear() -> None:
+    """Forget the frequencies copied to each device so far."""
+    _rope_freqs_on.cache_clear()
 
 
 def apply_rope(x, positions, *, rotary_dim, theta):

@@ -11,6 +11,7 @@ layer of the unit), and ``num_layers % unit_len`` trailing layers in
 
 Entry points:
     init(generator, cfg, device, dtype=None)          -> params
+    param_axes(cfg) / cache_axes(cfg)                 -> logical axes trees
     train_loss(params, cfg, batch)                    -> (loss, metrics)
     cache_init(cfg, batch, max_seq, device)           -> KV cache
     prefill(params, cfg, batch, cache)                -> (last_logits, cache)
@@ -52,6 +53,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import device as device_lib
+from repro_torch import sharding as sh
 from repro_torch import tree
 from repro_torch.configs.base import ATTN, ENC_ATTN, LOCAL_ATTN, MLSTM, RGLRU, SLSTM
 from repro_torch.models import attention as attn
@@ -176,6 +178,116 @@ def init(generator, cfg, device="cuda", dtype=None):
             _layer_init(generator, cfg, kind, is_moe, dev, (), dtype)
             for kind, is_moe in entries[:n_rest])
     return params
+
+
+# ------------------------------------------------------------- logical axes
+def _dense_axes(cfg, in_axis, out_axes, use_bias=None):
+    a = {"w": (in_axis, *out_axes)}
+    if cfg.use_bias if use_bias is None else use_bias:
+        a["b"] = tuple(out_axes)
+    return a
+
+
+def _norm_axes(cfg):
+    a = {"scale": (L.EMBED,)}
+    if cfg.norm == "layernorm" and cfg.use_bias:
+        a["bias"] = (L.EMBED,)
+    return a
+
+
+def _mlp_axes(cfg, use_bias):
+    return {"gate": _dense_axes(cfg, L.EMBED, (L.FFN,), use_bias),
+            "up": _dense_axes(cfg, L.EMBED, (L.FFN,), use_bias),
+            "down": _dense_axes(cfg, L.FFN, (L.EMBED,), use_bias)}
+
+
+def _mix_axes(cfg, kind):
+    if kind in _ATTN_KINDS:
+        o = _dense_axes(cfg, L.HEADS, (L.EMBED,))
+        o["w"] = (L.HEADS, L.HEAD_DIM, L.EMBED)
+        return {"q": _dense_axes(cfg, L.EMBED, (L.HEADS, L.HEAD_DIM)),
+                "k": _dense_axes(cfg, L.EMBED, (L.KV_HEADS, L.HEAD_DIM)),
+                "v": _dense_axes(cfg, L.EMBED, (L.KV_HEADS, L.HEAD_DIM)),
+                "o": o}
+    if kind == RGLRU:
+        return {"gate": _dense_axes(cfg, L.EMBED, (L.RNN,), False),
+                "x": _dense_axes(cfg, L.EMBED, (L.RNN,), False),
+                "out": _dense_axes(cfg, L.RNN, (L.EMBED,), False),
+                "conv_w": (L.CONV, L.RNN), "conv_b": (L.RNN,),
+                "w_r": (L.RNN, L.RNN), "b_r": (L.RNN,),
+                "w_i": (L.RNN, L.RNN), "b_i": (L.RNN,), "lam": (L.RNN,)}
+    if kind == MLSTM:
+        return {"up": (L.EMBED, L.FFN), "down": (L.FFN, L.EMBED),
+                "wq": (L.FFN, L.FFN), "wk": (L.FFN, L.FFN), "wv": (L.FFN, L.FFN),
+                "wi": (L.FFN, L.HEADS), "wf": (L.FFN, L.HEADS),
+                "bi": (L.HEADS,), "bf": (L.HEADS,), "ogate_skip": (L.FFN,)}
+    return {"w": (L.EMBED, L.FFN), "b": (L.FFN,),
+            "r": (L.CONV, L.HEADS, L.HEAD_DIM, L.HEAD_DIM),
+            "ffn_up": (L.EMBED, L.FFN), "ffn_down": (L.FFN, L.EMBED)}
+
+
+def _layer_axes(cfg, kind, is_moe):
+    a = {"norm1": _norm_axes(cfg), "mix": _mix_axes(cfg, kind)}
+    if kind in _XLSTM_KINDS:
+        return a
+    a["norm2"] = _norm_axes(cfg)
+    if is_moe:
+        a["ffn"] = {"router": _dense_axes(cfg, L.EMBED, (L.EXPERTS,), False),
+                    "gate": (L.EXPERTS, L.EMBED, L.FFN),
+                    "up": (L.EXPERTS, L.EMBED, L.FFN),
+                    "down": (L.EXPERTS, L.FFN, L.EMBED)}
+        if cfg.moe.shared_expert:
+            a["ffn"]["shared"] = _mlp_axes(cfg, False)
+    else:
+        a["ffn"] = _mlp_axes(cfg, cfg.use_bias)
+    return a
+
+
+def _stacked(axes):
+    return tree.map(lambda a: (L.STACK, *a), axes, is_leaf=sh.is_axes)
+
+
+def param_axes(cfg):
+    """The logical axes of every param ``init`` draws, a tuple of names a
+    leaf in the same tree (the JAX ``init``'s second return value): the
+    stacked units' leaves lead with ``STACK``."""
+    n_units, n_rest, entries = unit_layout(cfg)
+    table = {"table": (L.VOCAB, L.EMBED)}
+    axes: dict[str, Any] = {"embed": table}
+    if not cfg.tie_embeddings:
+        axes["unembed"] = dict(table)
+    if cfg.encoder_only:
+        axes["pos"] = (sh.SEQ, L.EMBED)
+    axes["final_norm"] = _norm_axes(cfg)
+    if n_units:
+        axes["units"] = tuple(_stacked(_layer_axes(cfg, kind, is_moe))
+                              for kind, is_moe in entries)
+    if n_rest:
+        axes["rest"] = tuple(_layer_axes(cfg, kind, is_moe)
+                             for kind, is_moe in entries[:n_rest])
+    return axes
+
+
+def _entry_cache_axes(kind):
+    if kind in _ATTN_KINDS:
+        seq = sh.KV_SEQ if kind != LOCAL_ATTN else None
+        return {k: (sh.BATCH, seq, L.KV_HEADS, L.HEAD_DIM) for k in ("k", "v")}
+    if kind == RGLRU:
+        return {"h": (sh.BATCH, L.RNN), "conv": (sh.BATCH, None, L.RNN)}
+    if kind == MLSTM:
+        return {"C": (sh.BATCH, L.HEADS, None, None),
+                "n": (sh.BATCH, L.HEADS, None), "m": (sh.BATCH, L.HEADS)}
+    return {k: (sh.BATCH, None) for k in ("c", "n", "h", "m")}
+
+
+def cache_axes(cfg):
+    """The logical axes of ``cache_init``'s tree, leaf by leaf (None where
+    the cache holds None)."""
+    n_units, n_rest, entries = unit_layout(cfg)
+    return {"units": tuple(_stacked(_entry_cache_axes(kind)) for kind, _ in entries)
+            if n_units else None,
+            "rest": tuple(_entry_cache_axes(kind) for kind, _ in entries[:n_rest])
+            if n_rest else None}
 
 
 # --------------------------------------------------------------------- layers
@@ -353,11 +465,13 @@ def train_loss(params, cfg, batch):
     else:
         loss_fn = chunk_loss
     tot, totacc, totw = zero, zero, zero
-    for c in range(S // chunk):
+    # h split once: the backward of a slice a chunk would write a zero
+    # tensor of the whole (B, S, d) residual for every chunk
+    for c, h_c in enumerate(h.split(chunk, dim=1)):
         sl = slice(c * chunk, (c + 1) * chunk)
         ms = (torch.ones(labels[:, sl].shape, dtype=torch.float32, device=h.device)
               if mask is None else mask[:, sl].to(torch.float32))
-        nll, acc = loss_fn(h[:, sl], labels[:, sl], ms)
+        nll, acc = loss_fn(h_c, labels[:, sl], ms)
         tot, totacc, totw = tot + nll, totacc + acc, totw + ms.sum()
     totw = torch.clamp_min(totw, 1.0)
     loss = tot / totw + 0.01 * aux

@@ -30,6 +30,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tracecheck
 from repro_torch.models import layers as L
 
 _PF = 2          # mLSTM up-projection factor
@@ -154,9 +155,10 @@ def mlstm_apply(p, cfg, x, *, cache=None):
     st = cache if cache is not None else mlstm_state_init(cfg, B, x.device)
     carry = (st["C"], st["n"], st["m"])
     hs = []
-    for c0 in range(0, S + pad, Lc):
-        carry, h = _mlstm_chunk(carry, tuple(t[:, c0:c0 + Lc]
-                                             for t in (q, k, v, logf, logi)))
+    # split, not a slice a chunk: the backward of each slice would write a
+    # zero tensor of the whole sequence (see _slstm_steps)
+    for chunk in zip(*(t.split(Lc, dim=1) for t in (q, k, v, logf, logi))):
+        carry, h = _mlstm_chunk(carry, chunk)
         hs.append(h)
     h = torch.cat(hs, dim=1).reshape(B, S + pad, -1)[:, :S]   # (B,S,di)
     h = h + p["ogate_skip"] * u                         # learnable skip
@@ -249,8 +251,11 @@ def _slstm_steps(p, cfg, st, wx):
     """The sequential loop over wx's (B, S, 4d) steps from state st.
     Returns (hs (B, S, d), the last state)."""
     hs = []
-    for t in range(wx.shape[1]):
-        st = _slstm_step(p, cfg, st, wx[:, t])
+    # unbind, not wx[:, t]: the backward of a step's index writes a zero
+    # tensor of the whole (B, S, 4d) input, O(S^2) bytes over the loop;
+    # unbind's backward stacks the steps' grads once
+    for wx_t in wx.unbind(1):
+        st = _slstm_step(p, cfg, st, wx_t)
         hs.append(st["h"])
     return torch.stack(hs, dim=1), st
 
@@ -296,8 +301,10 @@ class _StepGraph:
     replays, and returns a copy of their h. One graph a shape, shared by
     the calls of a process, which run one after another on the current
     stream. Warm-up runs on a side stream before the capture, as CUDA
-    graphs require."""
+    graphs require. Each construction is one capture
+    (``tracecheck.get_counter("models.xlstm.step_graph")``)."""
 
+    @tracecheck.count_captures(name="models.xlstm.step_graph")
     def __init__(self, cfg, B, device):
         self.cfg = cfg
         d, H = cfg.d_model, cfg.num_heads

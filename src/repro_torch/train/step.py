@@ -7,12 +7,13 @@ into the tensors of the state it is given and returns them (the JAX
 launcher donates the state, ``donate_argnums=(0,)``; at llama3-8b scale a
 second copy would not fit beside the first). Pass each state once.
 
-The abstract-struct and sharding helpers of the JAX module
-(``abstract_params``, ``abstract_cache``, ``opt_state_axes``,
-``input_specs``, ``batch_axes``, ``rules_for``, ``state_shardings``,
-``batch_shardings``, ``abstract_train_state``) serve the XLA dry-run
-lowering; they come with ``sharding.py`` (ROADMAP.md queue 1, 'CLI and
-the rest').
+The abstract helpers (``abstract_params``, ``abstract_cache``,
+``abstract_train_state``, ``input_specs``) build a cell's inputs on the
+meta device: shapes and dtypes, nothing drawn and nothing allocated (the
+JAX module's ``ShapeDtypeStruct``s). ``opt_state_axes``, ``batch_axes``,
+``rules_for``, ``state_shardings`` and ``batch_shardings`` give their
+logical axes and, against a mesh, their spec trees (``sharding``); the
+dry-run cell report (``launch.dryrun``) reads both.
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ from typing import Optional
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import sharding as sh
 from repro_torch import tree
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models import transformer
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.optim import schedules
@@ -110,3 +112,104 @@ def init_train_state(cfg: ArchConfig, generator, opt: Optional[opt_lib.Optimizer
     params = transformer.init(generator, cfg, dev)
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+# ------------------------------------------------------------ abstract inputs
+META = torch.device("meta")
+
+
+def abstract_params(cfg: ArchConfig):
+    """(params on the meta device, their logical axes): fp32, as ``init``
+    stores them, without drawing or allocating anything."""
+    return transformer.init(None, cfg, META), transformer.param_axes(cfg)
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int):
+    """(the ``cache_init`` tree on the meta device, its logical axes)."""
+    return (transformer.cache_init(cfg, batch, max_seq, META),
+            transformer.cache_axes(cfg))
+
+
+def opt_state_axes(opt_name: str, params_axes, params):
+    """Logical axes for optimizer state, mirroring the param axes."""
+    if opt_name == "adamw":
+        return {"m": params_axes, "v": params_axes}
+    if opt_name == "sgdm":
+        return {"mu": params_axes}
+    if opt_name == "adafactor":
+        def leaf(a, p):
+            if len(p.shape) >= 2:
+                return {"vr": tuple(a[:-1]), "vc": tuple(a[:-2]) + (a[-1],)}
+            return {"v": a}
+
+        return {"v": tree.map(leaf, params_axes, params, is_leaf=sh.is_axes)}
+    raise KeyError(opt_name)
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, batch: Optional[int] = None,
+                seq: Optional[int] = None):
+    """Meta stand-ins for every model input of a cell: int32 tokens and
+    labels, bf16 frame / patch embeddings, an fp32 loss mask. ``batch`` and
+    ``seq`` override the shape's global batch and sequence length (a
+    device's share)."""
+    B = shape.global_batch if batch is None else batch
+    S = shape.seq_len if seq is None else seq
+
+    def t(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device=META)
+
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind == "decode":
+        return {"tokens": t((B, 1), i32)}
+    if cfg.frontend == "audio":
+        batch_ = {"frame_embeds": t((B, S, cfg.d_model), bf16)}
+        if shape.kind == "train":
+            batch_["labels"] = t((B, S), i32)
+            batch_["loss_mask"] = t((B, S), torch.float32)
+        return batch_
+    batch_ = {"tokens": t((B, S), i32)}
+    if shape.kind == "train":
+        batch_["labels"] = t((B, S), i32)
+    if cfg.frontend == "vision":
+        batch_["patch_embeds"] = t((B, cfg.num_patch_tokens, cfg.d_model), bf16)
+    return batch_
+
+
+def batch_axes(cfg: ArchConfig, shape: InputShape):
+    specs = {
+        "tokens": (sh.BATCH, sh.SEQ),
+        "labels": (sh.BATCH, sh.SEQ),
+        "loss_mask": (sh.BATCH, sh.SEQ),
+        "frame_embeds": (sh.BATCH, sh.SEQ, None),
+        "patch_embeds": (sh.BATCH, None, None),
+    }
+    return {k: specs[k] for k in input_specs(cfg, shape, 1, 1)}
+
+
+def abstract_train_state(cfg: ArchConfig):
+    """(the training state on the meta device, its logical axes)."""
+    params, p_axes = abstract_params(cfg)
+    opt = make_optimizer(cfg)
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=META)}
+    axes = {"params": p_axes,
+            "opt": opt_state_axes(cfg.optimizer, p_axes, params), "step": ()}
+    return state, axes
+
+
+# ------------------------------------------------------------------- shardings
+def rules_for(cfg: ArchConfig, shape: InputShape) -> dict:
+    rules = sh.make_rules(fsdp=cfg.fsdp)
+    if shape.kind == "decode":
+        # KV cache sequence dim: prefer data (frees when batch < data axis),
+        # else model (flash-decoding style sequence parallelism).
+        rules[sh.KV_SEQ] = (("data",), ("model",))
+    return rules
+
+
+def state_shardings(state, axes, mesh, rules):
+    return sh.tree_specs(axes, mesh, rules, state)
+
+
+def batch_shardings(cfg, shape, batch, mesh, rules):
+    return sh.tree_specs(batch_axes(cfg, shape), mesh, rules, batch)

@@ -239,9 +239,29 @@ def test_bad_arguments_exit(argv, match, tmp_path):
      "smallworld", "--ttl", "2", "--compress", "int8"],
     [],
 ])
-def test_cell_report_raises_naming_its_roadmap_item(argv):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*13c"):
-        dryrun.main(argv)
+def test_cell_report_runs_on_the_meta_device(argv, tmp_path, capsys):
+    """The cell report's argvs (the JAX default route): a mesh record, a
+    gossip round's record with its permute bytes, and without a cell the
+    JAX command line's usage error. ``tests/test_torch_cellreport.py``
+    holds the records to JAX's."""
+    out = tmp_path / "cells.json"
+    if not argv:
+        with pytest.raises(SystemExit) as err:
+            dryrun.main([*argv, "--out", str(out)])
+        assert err.value.code == 2 and not out.exists()
+        assert "--arch/--shape or --all required" in capsys.readouterr().err
+        return
+    assert dryrun.main([*argv, "--out", str(out)]) == 0
+    with open(out) as f:
+        (rec,) = json.load(f)
+    assert (rec["status"], rec["device"], rec["arch"]) == ("ok", "meta", "llama3-8b")
+    assert None not in rec["bytes_per_device"].values()
+    assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
+    if "--dfl" in argv:
+        assert rec["step_kind"] == "gossip" and rec["permute_bytes"] > 0
+        assert rec["topology"] == "smallworld" and rec["compress"] == "int8"
+    else:
+        assert rec["step_kind"] == "train" and rec["permute_bytes"] is None
 
 
 @pytest.mark.parametrize("argv", [TOY, SWEEP])
