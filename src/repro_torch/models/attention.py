@@ -22,9 +22,10 @@ from repro_torch.models.flash import flash_attention_padded
 NEG_INF = -2.0e38
 
 
-def attn_init(generator, cfg, device, lead=()):
+def attn_init(generator, cfg, device, lead=(), dtype=None):
+    """q, k, v, o dense params; the weights stored in ``dtype``."""
     d, H, KH, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    kw = dict(use_bias=cfg.use_bias, device=device, lead=lead)
+    kw = dict(use_bias=cfg.use_bias, device=device, lead=lead, dtype=dtype)
     p = {"q": L.dense_init(generator, d, (H, Dh), **kw),
          "k": L.dense_init(generator, d, (KH, Dh), **kw),
          "v": L.dense_init(generator, d, (KH, Dh), **kw),

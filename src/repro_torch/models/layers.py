@@ -5,7 +5,10 @@ weight is (in, *out), an embedding table (vocab, d_model). Params are fp32
 (master weights); products run in the activation dtype, each weight cast to
 it at use (``transformer.cast_params`` makes that cast once up front, which
 gives the same numbers). ``lead`` is a tuple of leading dims for stacked
-layers: ``lead=(n,)`` draws n independent layers in one tensor per leaf.
+layers: ``lead=(n,)`` draws n independent layers in one tensor per leaf,
+one layer's slice at a time (``draw_stacked``). An init's ``dtype`` is the
+one its leaves that the forward casts at use are stored in (dense ``w``,
+embedding tables): each slice is drawn in fp32 and cast into place.
 """
 from __future__ import annotations
 
@@ -31,23 +34,50 @@ CONV = "conv"          # conv kernel taps
 _pt = torch.float32  # params kept fp32 (master weights); compute casts
 
 
-def truncated_normal(generator, shape, scale, device):
+def draw_stacked(lead, shape, draw, device, dtype=None):
+    """A leaf (*lead, *shape) stored in ``dtype`` (fp32 when None), filled
+    one lead index at a time (row-major) with ``draw()``, a fresh fp32
+    tensor of ``shape``, cast into place. Beside the leaf, at most one fp32
+    slice is alive, and the fp32 and the ``dtype`` builds draw the same
+    numbers: the ``dtype`` leaf is bitwise the cast of the fp32 one."""
+    if not lead:
+        t = draw()
+        return t if dtype is None else t.to(dtype)
+    out = torch.empty((*lead, *shape), dtype=dtype or _pt, device=device)
+    for i in np.ndindex(*lead):
+        out[i].copy_(draw())
+    return out
+
+
+def truncated_normal(generator, shape, scale, device, dtype=None):
     """``scale / sqrt(shape[-1])`` times a standard normal truncated to
     [-2, 2], as the JAX package's ``truncated_normal``."""
     stddev = scale / max(1.0, np.sqrt(shape[-1] if len(shape) else 1))
-    return _trunc(generator, shape, stddev, device)
+    return _trunc(generator, shape, stddev, device, dtype=dtype)
 
 
-def _trunc(generator, shape, stddev, device):
-    t = torch.empty(shape, dtype=_pt, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(stddev)
+def _trunc(generator, shape, stddev, device, lead=(), dtype=None):
+    def draw():
+        t = torch.empty(shape, dtype=_pt, device=device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return t.mul_(stddev)
+    return draw_stacked(lead, shape, draw, device, dtype)
 
 
-def dense_init(generator, in_dim, out_dims, *, use_bias, device, lead=()):
-    """Weight (*lead, in_dim, *out_dims) with fan-in scaled init."""
-    p = {"w": _trunc(generator, (*lead, in_dim, *out_dims), 1 / np.sqrt(in_dim),
-                     device)}
+def normal(generator, shape, stddev, device, lead=(), dtype=None):
+    """``stddev`` times a standard normal, ``lead`` slices drawn one at a
+    time."""
+    def draw():
+        t = torch.empty(shape, dtype=_pt, device=device)
+        return t.normal_(generator=generator).mul_(stddev)
+    return draw_stacked(lead, shape, draw, device, dtype)
+
+
+def dense_init(generator, in_dim, out_dims, *, use_bias, device, lead=(), dtype=None):
+    """Weight (*lead, in_dim, *out_dims) with fan-in scaled init, stored in
+    ``dtype``; the bias (fp32) zero."""
+    p = {"w": _trunc(generator, (in_dim, *out_dims), 1 / np.sqrt(in_dim), device,
+                     lead, dtype)}
     if use_bias:
         p["b"] = torch.zeros((*lead, *out_dims), dtype=_pt, device=device)
     return p
@@ -90,9 +120,9 @@ def norm_apply(p, x, kind, eps=1e-6):
 
 
 # ---------------------------------------------------------------------------- mlp
-def mlp_init(generator, d_model, d_ff, use_bias, device, lead=()):
+def mlp_init(generator, d_model, d_ff, use_bias, device, lead=(), dtype=None):
     """SwiGLU MLP: gate/up (d, ff) x2, down (ff, d)."""
-    kw = dict(use_bias=use_bias, device=device, lead=lead)
+    kw = dict(use_bias=use_bias, device=device, lead=lead, dtype=dtype)
     return {"gate": dense_init(generator, d_model, (d_ff,), **kw),
             "up": dense_init(generator, d_model, (d_ff,), **kw),
             "down": dense_init(generator, d_ff, (d_model,), **kw)}
@@ -105,8 +135,8 @@ def mlp_apply(p, x):
 
 
 # ---------------------------------------------------------------------- embedding
-def embed_init(generator, vocab, d_model, device):
-    return {"table": truncated_normal(generator, (vocab, d_model), 1.0, device)}
+def embed_init(generator, vocab, d_model, device, dtype=None):
+    return {"table": truncated_normal(generator, (vocab, d_model), 1.0, device, dtype)}
 
 
 def embed_apply(p, tokens, dtype=torch.bfloat16):

@@ -38,23 +38,24 @@ EXPERT_STACKS = ("gate", "up", "down")
 
 
 def moe_init(generator, cfg, device, lead=(), dtype=None):
-    """Random fp32 params; with ``dtype`` each expert stack is cast to it as
-    soon as it is drawn (bitwise the cast of the fp32 stack), so the fp32
-    copy of only one stack is alive at a time."""
+    """Random params; the router's and the shared expert's weights and the
+    expert stacks stored in ``dtype``. A stack is filled one (unit, expert)
+    slice at a time, each drawn in fp32 and cast into place, so no fp32
+    copy larger than one expert's matrix is ever alive."""
     m = cfg.moe
     d, E, ff = cfg.d_model, m.num_experts, m.d_ff_expert
 
     def stack(shape, fan_in):
-        t = L._trunc(generator, (*lead, *shape), 1.0 / math.sqrt(fan_in), device)
-        return t if dtype is None else t.to(dtype)
+        return L._trunc(generator, shape, 1.0 / math.sqrt(fan_in), device,
+                        (*lead, E), dtype)
 
     p = {"router": L.dense_init(generator, d, (E,), use_bias=False, device=device,
-                                lead=lead),
-         "gate": stack((E, d, ff), d),
-         "up": stack((E, d, ff), d),
-         "down": stack((E, ff, d), ff)}
+                                lead=lead, dtype=dtype),
+         "gate": stack((d, ff), d),
+         "up": stack((d, ff), d),
+         "down": stack((ff, d), ff)}
     if m.shared_expert:
-        p["shared"] = L.mlp_init(generator, d, ff, False, device, lead)
+        p["shared"] = L.mlp_init(generator, d, ff, False, device, lead, dtype)
     return p
 
 

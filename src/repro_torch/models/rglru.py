@@ -34,30 +34,34 @@ _CONV_WIDTH = 4
 _pt = torch.float32
 
 
-def rglru_init(generator, cfg, device, lead=()):
+def rglru_init(generator, cfg, device, lead=(), dtype=None):
+    """The temporal mix's params; the dense weights and the conv taps (cast
+    at use) stored in ``dtype``, the gates' w_r / w_i (used in fp32) not."""
     d = cfg.d_model
     d_rnn = cfg.d_model  # RecurrentGemma: RNN width == d_model
-    kw = dict(use_bias=False, device=device, lead=lead)
+    kw = dict(use_bias=False, device=device, lead=lead, dtype=dtype)
 
-    def normal(shape, scale):
-        t = torch.empty((*lead, *shape), dtype=_pt, device=device)
-        return t.normal_(generator=generator).mul_(scale)
+    def normal(shape, stored=None):
+        return L.normal(generator, shape, 0.01, device, lead, stored)
 
     def zeros():
         return torch.zeros((*lead, d_rnn), dtype=_pt, device=device)
 
+    def lam():
+        t = torch.empty((d_rnn,), dtype=_pt, device=device)
+        return t.uniform_(2.0, 6.0, generator=generator)
+
     p = {"gate": L.dense_init(generator, d, (d_rnn,), **kw),
          "x": L.dense_init(generator, d, (d_rnn,), **kw),
          "out": L.dense_init(generator, d_rnn, (d,), **kw),
-         "conv_w": normal((_CONV_WIDTH, d_rnn), 0.01),
+         "conv_w": normal((_CONV_WIDTH, d_rnn), dtype),
          "conv_b": zeros(),
-         "w_r": normal((d_rnn, d_rnn), 0.01),
+         "w_r": normal((d_rnn, d_rnn)),
          "b_r": zeros(),
-         "w_i": normal((d_rnn, d_rnn), 0.01),
+         "w_i": normal((d_rnn, d_rnn)),
          "b_i": zeros()}
     # Lambda init so that a^c = sigmoid(Lambda)^c spans ~[0.9, 0.999]
-    p["lam"] = torch.empty((*lead, d_rnn), dtype=_pt, device=device).uniform_(
-        2.0, 6.0, generator=generator)
+    p["lam"] = L.draw_stacked(lead, (d_rnn,), lam, device)
     return p
 
 

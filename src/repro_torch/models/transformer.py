@@ -90,7 +90,10 @@ def _cast_at_use(path) -> bool:
     tables, learned positions, RG-LRU's conv taps and the MoE expert
     stacks (rounded to bf16 at use, which storing in bf16 gives exactly).
     RG-LRU's w_r / w_i, the xLSTM matrices, norms and biases are left
-    alone: the first two are used in fp32 whatever the activation dtype."""
+    alone: the first two are used in fp32 whatever the activation dtype.
+    ``init(..., dtype)`` stores the same leaves in ``dtype``: each module's
+    init passes it to exactly these leaves (held together by
+    ``tests/test_torch_zoo.py`` on every arch)."""
     key, parent = path[-1], (path[-2] if len(path) > 1 else None)
     if key in ("table", "pos", "conv_w"):
         return True
@@ -116,33 +119,25 @@ def cast_params(params, dtype):
 
 
 # ---------------------------------------------------------------------- init
-def _store(t, dtype, key):
-    """A freshly drawn subtree under ``key``, cast as ``cast_params`` would
-    (as it is when ``dtype`` is None)."""
-    return t if dtype is None else _cast(t, dtype, (key,))
-
-
 def _layer_init(generator, cfg, kind, is_moe, device, lead, dtype):
     p = {"norm1": L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, device, lead)}
     if kind in _ATTN_KINDS:
-        mix = attn.attn_init(generator, cfg, device, lead)
+        p["mix"] = attn.attn_init(generator, cfg, device, lead, dtype)
     elif kind == RGLRU:
-        mix = rglru_lib.rglru_init(generator, cfg, device, lead)
-    elif kind == MLSTM:
-        mix = xlstm_lib.mlstm_init(generator, cfg, device, lead)
+        p["mix"] = rglru_lib.rglru_init(generator, cfg, device, lead, dtype)
+    elif kind == MLSTM:     # the xLSTM matrices are used in fp32: nothing cast
+        p["mix"] = xlstm_lib.mlstm_init(generator, cfg, device, lead)
     elif kind == SLSTM:
-        mix = xlstm_lib.slstm_init(generator, cfg, device, lead)
+        p["mix"] = xlstm_lib.slstm_init(generator, cfg, device, lead)
     else:
         raise ValueError(kind)
-    p["mix"] = _store(mix, dtype, "mix")
     if kind not in _XLSTM_KINDS:
         p["norm2"] = L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, device, lead)
         if is_moe:
-            ffn = moe_lib.moe_init(generator, cfg, device, lead, dtype)
+            p["ffn"] = moe_lib.moe_init(generator, cfg, device, lead, dtype)
         else:
-            ffn = L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.use_bias,
-                             device, lead)
-        p["ffn"] = _store(ffn, dtype, "ffn")
+            p["ffn"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.use_bias,
+                                  device, lead, dtype)
     return p
 
 
@@ -151,23 +146,26 @@ def init(generator, cfg, device="cuda", dtype=None):
     ``device``), in the JAX package's tree layout (its init distributions;
     not its numbers).
 
-    With ``dtype``, the leaves ``cast_params`` casts are stored in it as
-    they are drawn (the MoE expert stacks one by one, the rest a table, an
-    FFN or a temporal mix at a time): bitwise ``cast_params(init(
-    generator, cfg, device), dtype)`` from the same generator state,
-    without the fp32 model ever being whole (llama4-maverick's unit does
-    not fit one card in fp32)."""
+    Every stacked leaf (n_units, *shape) is allocated once and filled one
+    unit's slice at a time (the MoE expert stacks one (unit, expert) slice
+    at a time), each slice drawn in fp32 and cast into place
+    (``layers.draw_stacked``). With ``dtype``, the leaves ``cast_params``
+    casts are stored in it, and the rest in fp32: the same slices are
+    drawn in the same order, so the result is bitwise ``cast_params(init(
+    generator, cfg, device), dtype)`` from the same generator state. No
+    fp32 tensor larger than one slice of a leaf, or than an embedding or
+    position table, is alive beside the params: command-r-35b's 40 layers
+    build within one card's memory in bf16."""
     dev = device_lib.resolve(device)
     n_units, n_rest, entries = unit_layout(cfg)
     params: dict[str, Any] = {
-        "embed": _store(L.embed_init(generator, cfg.vocab_size, cfg.d_model, dev),
-                        dtype, "embed")}
+        "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model, dev, dtype)}
     if not cfg.tie_embeddings:
-        params["unembed"] = _store(
-            L.embed_init(generator, cfg.vocab_size, cfg.d_model, dev), dtype, "unembed")
+        params["unembed"] = L.embed_init(generator, cfg.vocab_size, cfg.d_model, dev,
+                                         dtype)
     if cfg.encoder_only:  # learned absolute positions (conv-pos stub)
-        params["pos"] = _store(L.truncated_normal(
-            generator, (cfg.max_seq_len, cfg.d_model), 1.0, dev), dtype, "pos")
+        params["pos"] = L.truncated_normal(generator, (cfg.max_seq_len, cfg.d_model),
+                                           1.0, dev, dtype)
     params["final_norm"] = L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, dev)
     if n_units:
         params["units"] = tuple(

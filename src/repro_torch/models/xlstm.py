@@ -39,7 +39,7 @@ _pt = torch.float32
 
 
 def _proj(generator, din, dout, device, lead, scale=1.0):
-    return L._trunc(generator, (*lead, din, dout), scale / math.sqrt(din), device)
+    return L._trunc(generator, (din, dout), scale / math.sqrt(din), device, lead)
 
 
 def _full(lead, shape, value, device):
@@ -205,8 +205,7 @@ def slstm_init(generator, cfg, device, lead=()):
                    _full(lead, (d,), 1.0, device),   # forget bias +1
                    _full(lead, (d,), 0.0, device)], dim=-1)
     # block-diagonal recurrent weights per head: (4, H, Dh, Dh)
-    r = torch.empty((*lead, 4, H, Dh, Dh), dtype=_pt, device=device)
-    r = r.normal_(generator=generator).mul_(0.4).div_(Dh ** 0.5)
+    r = L.normal(generator, (4, H, Dh, Dh), 0.4 / Dh ** 0.5, device, lead)
     return {"w": w, "b": b, "r": r,
             "ffn_up": _proj(generator, d, dff, device, lead),
             "ffn_down": _proj(generator, dff, d, device, lead)}

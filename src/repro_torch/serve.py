@@ -18,6 +18,10 @@ encoder only) prefills ``--prompt-len`` frame embeddings, runs the encoder
 forward and decodes nothing; llava-next's prompt carries
 ``num_patch_tokens`` patch embeddings over its first positions.
 
+On the meta device (``serve(..., device="meta")``) the run allocates
+nothing and launches nothing: what ``launch.op_cost.OpCost`` reads to
+predict a run's memory (a CPU generator stands in for the draws).
+
     python -m repro_torch.serve              # llama3-8b, B 4, P 4096, 32 decode steps
     python -m repro_torch.serve --smoke --device cpu --prompt-len 48 --gen 24
     python -m repro_torch.serve --arch xlstm-125m --smoke --device cpu
@@ -72,7 +76,7 @@ def serve(cfg, batch, prompt_len, gen, device="cuda"):
     if decode and gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     t0 = time.perf_counter()
-    g = torch.Generator(device=dev).manual_seed(0)
+    g = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(0)
     weights = transformer.init(g, cfg, dev, dtype=DTYPE)
     g.manual_seed(1)
     inputs = prefill_inputs(cfg, batch, prompt_len, g, dev)

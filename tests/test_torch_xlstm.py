@@ -149,3 +149,52 @@ def test_single_layer_decode_gap():
     assert torch.equal(y_full[:, :Sx], y_pre)
     gap = float((y_full[:, -1] - y_last[:, 0]).abs().max())
     assert gap < 0.03, gap
+
+
+def test_full_width_prefill_then_decode_gap_is_the_references():
+    """xlstm-125m at its published config (12 layers, d 768), fp32: a
+    prefill of P = 2048 tokens (128 whole mLSTM chunks) and token P decoded,
+    against a prefill of P + 1 tokens, on the JAX package and the port
+    from the same params (JAX init, key 4) and tokens. The port's two runs
+    equal the reference's within 2.5e-3 of the logits' scale (measured
+    6.1e-4), so the gap between them is the reference's own: at this draw
+    of the weights it is far outside the smoke-size bound of
+    tests/test_models.py (0.06 a layer: 0.72; mean < 0.18; argmax
+    agreement > 0.95), which other draws meet. chip_smoke's phase 15b
+    therefore holds the card's two runs to the CPU's on the same weights
+    and only prints that bound. ~35 s and ~3 GB on an 8-core CPU."""
+    from repro.configs import get_config as j_get_config
+    from repro.models import transformer as j_tf
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as p_tf
+
+    jcfg, cfg = j_get_config("xlstm-125m"), get_config("xlstm-125m")
+    P = 2048
+    params = jax.tree.map(np.asarray, j_tf.init(jax.random.PRNGKey(4), jcfg)[0])
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (B, P + 1))
+
+    def jax_prefill(S):
+        cache = jax.tree.map(lambda x: x.astype(jnp.float32), j_tf.cache_init(jcfg, B, P + 8)[0])
+        return jax.jit(lambda p, b, c: j_tf.prefill(p, jcfg, b, c, dtype=jnp.float32))(
+            params, {"tokens": jnp.asarray(toks[:, :S])}, cache)
+
+    j_dec = jax.jit(lambda p, c, t: j_tf.decode_step(
+        p, jcfg, t, c, jnp.asarray(P, jnp.int32), dtype=jnp.float32))(
+        params, jax_prefill(P)[1], jnp.asarray(toks[:, P:]))[0]
+    j_full = jax_prefill(P + 1)[0]
+
+    w = convert.params_from_jax(params, "cpu")
+    _, cache = p_tf.prefill(w, cfg, {"tokens": torch.as_tensor(toks[:, :P])},
+                            p_tf.cache_init(cfg, B, P + 8, "cpu"), dtype=torch.float32)
+    p_dec, _ = p_tf.decode_step(w, cfg, torch.as_tensor(toks[:, P:]), cache, P,
+                                dtype=torch.float32)
+    p_full, _ = p_tf.prefill(w, cfg, {"tokens": torch.as_tensor(toks)},
+                             p_tf.cache_init(cfg, B, P + 8, "cpu"), dtype=torch.float32)
+    d, f = np.asarray(j_dec, np.float32), np.asarray(j_full, np.float32)
+    scale = np.abs(f).max()
+    for got, want in ((p_dec, d), (p_full, f)):
+        assert np.abs(got.numpy() - want).max() <= 2.5e-3 * scale
+    gap = np.abs(d - f)
+    assert gap.max() > 0.06 * cfg.num_layers + 0.1 * np.abs(f).max()
+    assert gap.mean() > 0.015 * cfg.num_layers
+    assert (d.argmax(-1) == f.argmax(-1)).mean() <= 0.5

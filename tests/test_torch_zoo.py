@@ -459,13 +459,18 @@ def test_tree_round_trip_through_convert(arch):
         assert a.shape == b.shape and a.dtype == b.dtype
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_leaf_by_leaf_bf16_init_is_the_cast_of_the_fp32_init(arch):
-    """``init(..., dtype=bf16)`` (llama4's build on the card: each leaf cast
-    as it is drawn) is bitwise ``cast_params(init(...), bf16)`` from the
-    same generator state, and casts exactly the leaves the forward casts
-    at use."""
-    cfg = smoke_config(arch)
+    """``init(..., dtype=bf16)`` (the serving build on the card: each unit
+    slice of a leaf cast as it is drawn) is bitwise ``cast_params(init(...),
+    bf16)`` from the same generator state, and casts exactly the leaves the
+    forward casts at use. Every arch, at two units and a trailing layer
+    where its unit has more than one (MoE: the smoke config's 4 experts),
+    so that the unit and expert slices are drawn one after another."""
+    ul = p_tf.unit_len(smoke_config(arch))
+    cfg = dataclasses.replace(smoke_config(arch), num_layers=2 * ul + (ul > 1))
+    n_units, n_rest, _ = p_tf.unit_layout(cfg)
+    assert n_units == 2 and n_rest == (ul > 1)
     want = p_tf.cast_params(p_tf.init(torch.Generator().manual_seed(3), cfg, "cpu"),
                             torch.bfloat16)
     got = p_tf.init(torch.Generator().manual_seed(3), cfg, "cpu", dtype=torch.bfloat16)
