@@ -1,0 +1,8 @@
+"""Share of the traced window in which no kernel, copy or set ran on the
+card (1 - the union of their intervals over the window), federations of
+one at a time."""
+from perfbench.metrics._device import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx)

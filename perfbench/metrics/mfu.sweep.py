@@ -1,0 +1,7 @@
+"""The LeNet-5 FLOPs of the traced window over its length times the fp32
+peak (``_lenet.mfu``), batched sweeps of small federations."""
+from perfbench.metrics._lenet import mfu
+
+
+def read(ctx):
+    return mfu(ctx)
