@@ -291,14 +291,16 @@ def profiled():
 
 def measured_events(prof):
     """Device events (kernels, copies, memsets) of a ``profiled`` window's
-    body."""
+    body. The program's ``dfl.*`` spans (``repro_torch.core.spans``) are
+    ``record_function`` ranges, mirrored on the card's timeline as
+    annotations over their kernels: not device work, so left out."""
     import torch
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     events = prof.events()
     start = min(e.time_range.start for e in events
                 if e.name == MEASURED and e.device_type == cpu)
     return [e for e in events if e.device_type == cuda and e.name != MEASURED
-            and e.time_range.start >= start]
+            and not e.name.startswith("dfl.") and e.time_range.start >= start]
 
 
 def _device_events(fn, calls: int, warmup: int = 10):

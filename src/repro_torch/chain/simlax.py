@@ -142,6 +142,7 @@ from repro_torch.chain import attacks as attacks_lib
 from repro_torch.chain.attacks import BatchedFederationSpec
 from repro_torch.core import compression, gossip
 from repro_torch.core import topology as topology_lib
+from repro_torch.core.spans import span
 from repro_torch.launch import mesh as mesh_lib
 
 _NEVER = np.iinfo(np.int32).max
@@ -222,161 +223,162 @@ class LaxSimulator:
 
     def __init__(self, scenario, topology: topology_lib.Topology, spec,
                  rep_impl, cfg: SimLaxConfig, *, device="cuda"):
-        self.device = dev = device_lib.resolve(device)
-        n = topology.num_nodes
-        batched = isinstance(spec, BatchedFederationSpec)
-        specs = spec.specs if batched else (spec,)
-        for b, s in enumerate(specs):
-            if s.num_nodes != n:
+        with span("dfl.simlax.build"):
+            self.device = dev = device_lib.resolve(device)
+            n = topology.num_nodes
+            batched = isinstance(spec, BatchedFederationSpec)
+            specs = spec.specs if batched else (spec,)
+            for b, s in enumerate(specs):
+                if s.num_nodes != n:
+                    raise ValueError(
+                        (f"batch member {b}'s spec" if batched else "spec")
+                        + f" is for {s.num_nodes} nodes, topology has {n}")
+            if cfg.latency < 1:
                 raise ValueError(
-                    (f"batch member {b}'s spec" if batched else "spec")
-                    + f" is for {s.num_nodes} nodes, topology has {n}")
-        if cfg.latency < 1:
-            raise ValueError(
-                "latency must be >= 1 tick (0 would schedule arrivals at "
-                "the already-processed current tick and drop every message)")
-        if cfg.delivery not in DELIVERY_ENGINES:
-            raise ValueError(
-                f"unknown delivery engine {cfg.delivery!r}; "
-                f"choose from {DELIVERY_ENGINES}")
-        if cfg.compress not in COMPRESS_MODES:
-            raise ValueError(
-                f"unknown compress mode {cfg.compress!r}; "
-                f"choose from {COMPRESS_MODES}")
-        if cfg.shards is not None and cfg.delivery != "sharded":
-            raise ValueError(
-                f"SimLaxConfig.shards only applies to delivery='sharded' "
-                f"(got delivery={cfg.delivery!r})")
-        if cfg.delivery == "sharded" and batched:
-            raise ValueError(
-                "delivery='sharded' does not compose with "
-                "BatchedFederationSpec: run sharded federations one at a "
-                "time, or batch with the compact engine")
-        if cfg.train_interval[0] < cfg.ttl * cfg.latency:
-            warnings.warn(
-                f"min train interval ({cfg.train_interval[0]}) < ttl * "
-                f"latency ({cfg.ttl * cfg.latency}): a node can re-broadcast "
-                "before its previous model finished propagating, and this "
-                "engine's single in-flight snapshot per (dst, src) pair "
-                "overwrites the old delivery — event counts will fall below "
-                "the heap reference's. Raise train_interval or lower "
-                "ttl/latency for exact parity.",
-                stacklevel=2)
-        if cfg.compact_budget is not None and cfg.compact_budget < 1:
-            raise ValueError(
-                f"compact_budget must be >= 1, got {cfg.compact_budget}")
-        self.scenario, self.topology, self.spec = scenario, topology, spec
-        self.rep_impl, self.cfg = rep_impl, cfg
-        self._batched = batched
-        self._specs = specs
-        self.batch_size = len(specs) if batched else None
-        self._seeds = spec.resolved_seeds(cfg.seed) if batched else (cfg.seed,)
+                    "latency must be >= 1 tick (0 would schedule arrivals at "
+                    "the already-processed current tick and drop every message)")
+            if cfg.delivery not in DELIVERY_ENGINES:
+                raise ValueError(
+                    f"unknown delivery engine {cfg.delivery!r}; "
+                    f"choose from {DELIVERY_ENGINES}")
+            if cfg.compress not in COMPRESS_MODES:
+                raise ValueError(
+                    f"unknown compress mode {cfg.compress!r}; "
+                    f"choose from {COMPRESS_MODES}")
+            if cfg.shards is not None and cfg.delivery != "sharded":
+                raise ValueError(
+                    f"SimLaxConfig.shards only applies to delivery='sharded' "
+                    f"(got delivery={cfg.delivery!r})")
+            if cfg.delivery == "sharded" and batched:
+                raise ValueError(
+                    "delivery='sharded' does not compose with "
+                    "BatchedFederationSpec: run sharded federations one at a "
+                    "time, or batch with the compact engine")
+            if cfg.train_interval[0] < cfg.ttl * cfg.latency:
+                warnings.warn(
+                    f"min train interval ({cfg.train_interval[0]}) < ttl * "
+                    f"latency ({cfg.ttl * cfg.latency}): a node can re-broadcast "
+                    "before its previous model finished propagating, and this "
+                    "engine's single in-flight snapshot per (dst, src) pair "
+                    "overwrites the old delivery — event counts will fall below "
+                    "the heap reference's. Raise train_interval or lower "
+                    "ttl/latency for exact parity.",
+                    stacklevel=2)
+            if cfg.compact_budget is not None and cfg.compact_budget < 1:
+                raise ValueError(
+                    f"compact_budget must be >= 1, got {cfg.compact_budget}")
+            self.scenario, self.topology, self.spec = scenario, topology, spec
+            self.rep_impl, self.cfg = rep_impl, cfg
+            self._batched = batched
+            self._specs = specs
+            self.batch_size = len(specs) if batched else None
+            self._seeds = spec.resolved_seeds(cfg.seed) if batched else (cfg.seed,)
 
-        # per member: flooding routes only through alive nodes; the engine
-        # consumes distances <= ttl only, so the BFS stops there
-        alives, dists, reaches, delays = [], [], [], []
-        for s in specs:
-            alive = np.ones((n,), np.bool_)
-            alive[list(s.dead)] = False
-            adj = topology.adj & alive[None, :] & alive[:, None]
-            dist = topology_lib.hop_distance_from_adj(adj, max_hops=cfg.ttl)
-            reach = (dist >= 1) & (dist <= cfg.ttl)
-            alives.append(alive)
-            dists.append(dist)
-            reaches.append(reach)
-            delays.append(np.where(reach, dist * cfg.latency, 0).astype(np.int32))
-        # one slot width and one work-buffer bound serve every member: the
-        # max over the batch
-        self.budgets = topology_lib.batch_budgets(
-            topology.adj, cfg.ttl, cfg.train_interval, [s.dead for s in specs],
-            latency=cfg.latency, dists=dists)
-        # slot k of dst is its k-th in-ball sender in ascending src order
-        # (padding slots map to non-reach senders, never due)
-        self.delivery_budget = budget = self.budgets.delivery
-        self.compact_budget = min(
-            self.budgets.compaction if cfg.compact_budget is None
-            else int(cfg.compact_budget), n * budget)
-        slot_srcs = [np.argsort(~reach, axis=1, kind="stable")[:, :budget]
-                     for reach in reaches]
-        self._slot_src_np = np.stack(slot_srcs).astype(np.int32)  # (B, N, budget)
+            # per member: flooding routes only through alive nodes; the engine
+            # consumes distances <= ttl only, so the BFS stops there
+            alives, dists, reaches, delays = [], [], [], []
+            for s in specs:
+                alive = np.ones((n,), np.bool_)
+                alive[list(s.dead)] = False
+                adj = topology.adj & alive[None, :] & alive[:, None]
+                dist = topology_lib.hop_distance_from_adj(adj, max_hops=cfg.ttl)
+                reach = (dist >= 1) & (dist <= cfg.ttl)
+                alives.append(alive)
+                dists.append(dist)
+                reaches.append(reach)
+                delays.append(np.where(reach, dist * cfg.latency, 0).astype(np.int32))
+            # one slot width and one work-buffer bound serve every member: the
+            # max over the batch
+            self.budgets = topology_lib.batch_budgets(
+                topology.adj, cfg.ttl, cfg.train_interval, [s.dead for s in specs],
+                latency=cfg.latency, dists=dists)
+            # slot k of dst is its k-th in-ball sender in ascending src order
+            # (padding slots map to non-reach senders, never due)
+            self.delivery_budget = budget = self.budgets.delivery
+            self.compact_budget = min(
+                self.budgets.compaction if cfg.compact_budget is None
+                else int(cfg.compact_budget), n * budget)
+            slot_srcs = [np.argsort(~reach, axis=1, kind="stable")[:, :budget]
+                         for reach in reaches]
+            self._slot_src_np = np.stack(slot_srcs).astype(np.int32)  # (B, N, budget)
 
-        def on_dev(arrays, dtype=None):
-            return torch.as_tensor(np.stack(arrays), device=dev, dtype=dtype)
+            def on_dev(arrays, dtype=None):
+                return torch.as_tensor(np.stack(arrays), device=dev, dtype=dtype)
 
-        self._consts = {"alive": on_dev(alives),
-                        "slot_src": on_dev(slot_srcs, torch.int64)}
-        self._block = (0, n)       # this process's receivers: [lo, lo + m)
-        self.shards = self.shard_budget = None
-        if cfg.delivery == "sharded":
-            self._shard_layout(reaches[0], delays[0], dists[0],
-                               alives[0], slot_srcs[0])
-        elif cfg.delivery == "compact":
-            # the inverse slot map: for each sender, the (dst, slot, delay)
-            # triples it lands in; padding rows point at the dropped row n
-            inv_dsts, inv_slots, inv_delays = [], [], []
-            for reach, delay, slot_src in zip(reaches, delays, slot_srcs):
-                slot_of = np.full((n, n), -1, np.int64)
-                slot_of[np.arange(n)[:, None], slot_src] = np.arange(budget)[None, :]
-                slot_of[~reach] = -1
-                inv_dst = np.full((n, budget), n, np.int64)
-                inv_slot = np.zeros((n, budget), np.int64)
-                inv_delay = np.zeros((n, budget), np.int32)
-                for src in range(n):
-                    dsts = np.flatnonzero(reach[:, src])
-                    inv_dst[src, :len(dsts)] = dsts
-                    inv_slot[src, :len(dsts)] = slot_of[dsts, src]
-                    inv_delay[src, :len(dsts)] = delay[dsts, src]
-                inv_dsts.append(inv_dst)
-                inv_slots.append(inv_slot)
-                inv_delays.append(inv_delay)
-            self._consts.update(inv_dst=on_dev(inv_dsts),
-                                inv_slot=on_dev(inv_slots),
-                                inv_delay=on_dev(inv_delays))
-        else:
-            self._consts.update(reach=on_dev(reaches), delay=on_dev(delays))
+            self._consts = {"alive": on_dev(alives),
+                            "slot_src": on_dev(slot_srcs, torch.int64)}
+            self._block = (0, n)       # this process's receivers: [lo, lo + m)
+            self.shards = self.shard_budget = None
+            if cfg.delivery == "sharded":
+                self._shard_layout(reaches[0], delays[0], dists[0],
+                                   alives[0], slot_srcs[0])
+            elif cfg.delivery == "compact":
+                # the inverse slot map: for each sender, the (dst, slot, delay)
+                # triples it lands in; padding rows point at the dropped row n
+                inv_dsts, inv_slots, inv_delays = [], [], []
+                for reach, delay, slot_src in zip(reaches, delays, slot_srcs):
+                    slot_of = np.full((n, n), -1, np.int64)
+                    slot_of[np.arange(n)[:, None], slot_src] = np.arange(budget)[None, :]
+                    slot_of[~reach] = -1
+                    inv_dst = np.full((n, budget), n, np.int64)
+                    inv_slot = np.zeros((n, budget), np.int64)
+                    inv_delay = np.zeros((n, budget), np.int32)
+                    for src in range(n):
+                        dsts = np.flatnonzero(reach[:, src])
+                        inv_dst[src, :len(dsts)] = dsts
+                        inv_slot[src, :len(dsts)] = slot_of[dsts, src]
+                        inv_delay[src, :len(dsts)] = delay[dsts, src]
+                    inv_dsts.append(inv_dst)
+                    inv_slots.append(inv_slot)
+                    inv_delays.append(inv_delay)
+                self._consts.update(inv_dst=on_dev(inv_dsts),
+                                    inv_slot=on_dev(inv_slots),
+                                    inv_delay=on_dev(inv_delays))
+            else:
+                self._consts.update(reach=on_dev(reaches), delay=on_dev(delays))
 
-        # attacks: one entry per distinct instance over the batch, with the
-        # (B, N) mask of its attackers and each member's own fold constant
-        self._attacks = tuple(BatchedFederationSpec.build(specs).attack_union())
-        self._malicious = np.zeros((len(specs), n), np.bool_)
-        strag = np.ones((len(specs), n), np.int32)
-        for b, s in enumerate(specs):
-            self._malicious[b, list(s.malicious)] = True
-            for k, v in s.straggler_map().items():
-                strag[b, k] = v
-        self._consts["straggler"] = torch.as_tensor(strag, device=dev)
+            # attacks: one entry per distinct instance over the batch, with the
+            # (B, N) mask of its attackers and each member's own fold constant
+            self._attacks = tuple(BatchedFederationSpec.build(specs).attack_union())
+            self._malicious = np.zeros((len(specs), n), np.bool_)
+            strag = np.ones((len(specs), n), np.int32)
+            for b, s in enumerate(specs):
+                self._malicious[b, list(s.malicious)] = True
+                for k, v in s.straggler_map().items():
+                    strag[b, k] = v
+            self._consts["straggler"] = torch.as_tensor(strag, device=dev)
 
-        # membership: dense per-tick masks, expanded once on the host; a
-        # member without churn keeps its static alive mask and decrements
-        # every countdown each tick, as its single run does
-        self._membership = any(s.membership is not None for s in specs)
-        if self._membership:
-            alive_ts, rejoin_ts, decays = [], [], []
-            for s, alive in zip(specs, alives):
-                if s.membership is None:
-                    alive_ts.append(np.tile(alive, (cfg.ticks, 1)))
-                    rejoin_ts.append(np.zeros((cfg.ticks, n), np.bool_))
-                    decays.append(np.float32(1.0))
-                else:
-                    a_t, r_t = s.membership.timeline(n, cfg.ticks, dead=s.dead)
-                    alive_ts.append(a_t)
-                    rejoin_ts.append(r_t)
-                    decays.append(np.float32(s.membership.rejoin_decay))
-            self._rejoin_any = np.stack(rejoin_ts).any(axis=(0, 2))   # (ticks,)
-            self._consts.update(
-                alive_t=on_dev(alive_ts),
-                rejoin_t=on_dev(rejoin_ts), rejoin_decay=on_dev(decays),
-                churn=on_dev([s.membership is not None for s in specs]))
+            # membership: dense per-tick masks, expanded once on the host; a
+            # member without churn keeps its static alive mask and decrements
+            # every countdown each tick, as its single run does
+            self._membership = any(s.membership is not None for s in specs)
+            if self._membership:
+                alive_ts, rejoin_ts, decays = [], [], []
+                for s, alive in zip(specs, alives):
+                    if s.membership is None:
+                        alive_ts.append(np.tile(alive, (cfg.ticks, 1)))
+                        rejoin_ts.append(np.zeros((cfg.ticks, n), np.bool_))
+                        decays.append(np.float32(1.0))
+                    else:
+                        a_t, r_t = s.membership.timeline(n, cfg.ticks, dead=s.dead)
+                        alive_ts.append(a_t)
+                        rejoin_ts.append(r_t)
+                        decays.append(np.float32(s.membership.rejoin_decay))
+                self._rejoin_any = np.stack(rejoin_ts).any(axis=(0, 2))   # (ticks,)
+                self._consts.update(
+                    alive_t=on_dev(alive_ts),
+                    rejoin_t=on_dev(rejoin_ts), rejoin_decay=on_dev(decays),
+                    churn=on_dev([s.membership is not None for s in specs]))
 
-        lo, m = self._block
+            lo, m = self._block
 
-        def block(data):      # this process's rows of a scenario's data
-            if data is None or m == n:
-                return data
-            return tree.map(lambda x: x[lo:lo + m].clone(), data)
+            def block(data):      # this process's rows of a scenario's data
+                if data is None or m == n:
+                    return data
+                return tree.map(lambda x: x[lo:lo + m].clone(), data)
 
-        self._eval_data = block(scenario.eval_data(dev))
-        self._train_data = block(scenario.train_data(dev))
+            self._eval_data = block(scenario.eval_data(dev))
+            self._train_data = block(scenario.train_data(dev))
 
     def _shard_layout(self, reach, delay, dist_, alive, slot_src):
         """delivery="sharded": this rank's receiver block, its work-buffer
@@ -577,16 +579,17 @@ class LaxSimulator:
         (masked out by the caller)."""
         m = self._block[1]
         out, lo = [], 0
-        for b, span in enumerate(spans):
-            hi = lo + span
+        for b, size in enumerate(spans):
+            hi = lo + size
             if counts[b]:
                 models = tree.map(lambda x: x[row[lo:hi]], pool)
                 rows = rcv[lo:hi] - b * m if b else rcv[lo:hi]
                 data = tree.map(lambda x: x[rows], self._eval_data)
-                out.append(self.scenario.eval_stacked(models, data)
-                           .to(torch.float32))
-            elif span:
-                out.append(torch.zeros((span,), device=self.device))
+                with span("dfl.scenario.eval"):
+                    acc = self.scenario.eval_stacked(models, data)
+                out.append(acc.to(torch.float32))
+            elif size:
+                out.append(torch.zeros((size,), device=self.device))
             lo = hi
         return out[0] if len(out) == 1 else torch.cat(out)
 
@@ -612,10 +615,11 @@ class LaxSimulator:
         parts = []
         for b in np.unique(member_np).tolist():
             sel = local[bounds[b]:bounds[b + 1]]
-            parts.append(self.scenario.train_stacked(
-                tree.map(lambda x: x[b], params),
-                attacks_lib.stream_key_at(self._seeds[b], t, _TRAIN_FOLD, dev),
-                self._train_data, sel, ids=sel + lo))
+            with span("dfl.scenario.train"):
+                parts.append(self.scenario.train_stacked(
+                    tree.map(lambda x: x[b], params),
+                    attacks_lib.stream_key_at(self._seeds[b], t, _TRAIN_FOLD, dev),
+                    self._train_data, sel, ids=sel + lo))
         trained = parts[0] if len(parts) == 1 else tree.map(
             lambda *xs: torch.cat(xs), *parts)
         # attackers never COMMIT local training; their honestly trained
@@ -627,20 +631,21 @@ class LaxSimulator:
             for p, tr in zip(tree.leaves(flat), tree.leaves(trained)):
                 p.index_copy_(0, rows[pick], tr[pick].to(p.dtype))
         outgoing = trained
-        for attack, mask, folds in self._attacks:
-            pos = np.flatnonzero(mask[:, lo:lo + m].reshape(-1)[rows_np])
-            if not pos.size:
-                continue
-            bad = [attack.apply(
-                attacks_lib.attack_key_at(
-                    self._seeds[member_np[j]], t, int(folds[member_np[j]]),
-                    int(rows_np[j] % m) + lo, dev),
-                tree.map(lambda x, j=j: x[j], trained),
-                tree.map(lambda x, j=j: x[j], committed), t) for j in pos]
-            at = torch.as_tensor(pos, device=dev)
-            outgoing = tree.map(
-                lambda o, *bd: o.index_copy(0, at, torch.stack(bd).to(o.dtype)),
-                outgoing, *bad)
+        with span("dfl.attack"):
+            for attack, mask, folds in self._attacks:
+                pos = np.flatnonzero(mask[:, lo:lo + m].reshape(-1)[rows_np])
+                if not pos.size:
+                    continue
+                bad = [attack.apply(
+                    attacks_lib.attack_key_at(
+                        self._seeds[member_np[j]], t, int(folds[member_np[j]]),
+                        int(rows_np[j] % m) + lo, dev),
+                    tree.map(lambda x, j=j: x[j], trained),
+                    tree.map(lambda x, j=j: x[j], committed), t) for j in pos]
+                at = torch.as_tensor(pos, device=dev)
+                outgoing = tree.map(
+                    lambda o, *bd: o.index_copy(0, at, torch.stack(bd).to(o.dtype)),
+                    outgoing, *bad)
         if self.cfg.compress == "int8":
             # every sender quantizes its (post-attack) broadcast ONCE: one
             # quantize and one dequantize launch for all members' stacked
@@ -732,139 +737,151 @@ class LaxSimulator:
         trained = False
 
         for t in range(cfg.ticks):
-            # ---- 0. membership: events apply at the TOP of the tick;
-            # rejoiners get every peer's reputation COLUMN decayed
-            if self._membership:
-                a_t = c["alive_t"][:, t]
-                if self._rejoin_any[t]:
-                    decayed = torch.clamp(
-                        s["rep"] * c["rejoin_decay"][:, None, None],
-                        rep_impl.floor, rep_impl.initial)
-                    s["rep"] = torch.where(c["rejoin_t"][:, t][:, None, :],
-                                           decayed, s["rep"])
-            else:
-                a_t = c["alive"]
-            if sharded and trained:
-                pool = self._exchange(s["sent"])
+            with span("dfl.simlax.tick"):
+                with span("dfl.simlax.deliver"):
+                    # ---- 0. membership: events apply at the TOP of the
+                    # tick; rejoiners get every peer's reputation COLUMN
+                    # decayed
+                    if self._membership:
+                        a_t = c["alive_t"][:, t]
+                        if self._rejoin_any[t]:
+                            decayed = torch.clamp(
+                                s["rep"] * c["rejoin_decay"][:, None, None],
+                                rep_impl.floor, rep_impl.initial)
+                            s["rep"] = torch.where(c["rejoin_t"][:, t][:, None, :],
+                                                   decayed, s["rep"])
+                    else:
+                        a_t = c["alive"]
+                    if sharded and trained:
+                        pool = self._exchange(s["sent"])
 
-            # ---- 1. deliveries due at t; an arrival at an offline
-            # receiver expires without delivering
-            expired = live == t
-            due = expired & a_t[:, lo:lo + m, None]
-            counts = due.sum((1, 2)).cpu().numpy()        # host sync 1 of 2
-            if counts.any():
-                if compact and counts.max() > self.compact_budget:
-                    self._overflow(t, counts)
-                rcv, src, ok, lengths, spans = items_of(due, counts)
-                if sharded:
-                    row = c["row_of_src"][src]
-                else:
-                    # every engine but sharded reads the (B * N) sent rows
-                    row = src + rcv // n * n
-                    pool = tree.map(lambda x: x.flatten(0, 1), s["sent"])
-                acc_sum, w_sum, batch_min, batch_sender = self._reduce(
-                    s, counts, pool, row, rcv, src, ok, lengths, spans)
-                if not counts.all():
-                    # a member with nothing due this tick keeps its buffer
-                    # untouched, as its single run does
-                    idle = torch.as_tensor(counts == 0, device=dev)
-                    acc_sum = tree.map(
-                        lambda new, old: torch.where(_col(idle, old), old, new),
-                        acc_sum, s["acc_sum"])
-                    w_sum = torch.where(idle[:, None], s["w_sum"], w_sum)
-                s["acc_sum"], s["w_sum"] = acc_sum, w_sum
-                s["buf_cnt"] = s["buf_cnt"] + due.sum(2)
-                better = batch_min < min_acc
-                min_acc = torch.where(better, batch_min, min_acc)
-                min_sender = torch.where(better, batch_sender, min_sender)
-            live.masked_fill_(expired, _NEVER)
-            deliveries += counts
-            due_ticks[t] = counts
+                    # ---- 1. deliveries due at t; an arrival at an offline
+                    # receiver expires without delivering
+                    expired = live == t
+                    due = expired & a_t[:, lo:lo + m, None]
+                    counts = due.sum((1, 2)).cpu().numpy()    # host sync 1 of 2
+                    delivered = counts.any()
+                    if delivered:
+                        if compact and counts.max() > self.compact_budget:
+                            self._overflow(t, counts)
+                        rcv, src, ok, lengths, spans = items_of(due, counts)
+                        if sharded:
+                            row = c["row_of_src"][src]
+                        else:
+                            # every engine but sharded reads the (B * N)
+                            # sent rows
+                            row = src + rcv // n * n
+                            pool = tree.map(lambda x: x.flatten(0, 1), s["sent"])
+                if delivered:
+                    with span("dfl.simlax.reduce"):
+                        acc_sum, w_sum, batch_min, batch_sender = self._reduce(
+                            s, counts, pool, row, rcv, src, ok, lengths, spans)
+                        if not counts.all():
+                            # a member with nothing due this tick keeps its
+                            # buffer untouched, as its single run does
+                            idle = torch.as_tensor(counts == 0, device=dev)
+                            acc_sum = tree.map(
+                                lambda new, old: torch.where(_col(idle, old), old, new),
+                                acc_sum, s["acc_sum"])
+                            w_sum = torch.where(idle[:, None], s["w_sum"], w_sum)
+                        s["acc_sum"], s["w_sum"] = acc_sum, w_sum
+                        s["buf_cnt"] = s["buf_cnt"] + due.sum(2)
+                        better = batch_min < min_acc
+                        min_acc = torch.where(better, batch_min, min_acc)
+                        min_sender = torch.where(better, batch_sender, min_sender)
+                live.masked_fill_(expired, _NEVER)
+                deliveries += counts
+                due_ticks[t] = counts
 
-            # ---- 2. weighted FedAvg (Eq. 3) where the buffer filled up
-            fire = s["buf_cnt"] >= rep_impl.buffer_size
-            apply = fire & (s["w_sum"] > _EPS)
-            denom = torch.clamp_min(s["w_sum"], _EPS)
+                with span("dfl.simlax.fedavg"):
+                    # ---- 2. weighted FedAvg (Eq. 3) where the buffer
+                    # filled up
+                    fire = s["buf_cnt"] >= rep_impl.buffer_size
+                    apply = fire & (s["w_sum"] > _EPS)
+                    denom = torch.clamp_min(s["w_sum"], _EPS)
 
-            def leaf(acc, p):
-                p32 = p.to(torch.float32)
-                avg = acc / _col(denom, acc)
-                return torch.where(_col(apply, acc), 0.5 * (avg + p32),
-                                   p32).to(p.dtype)
+                    def leaf(acc, p):
+                        p32 = p.to(torch.float32)
+                        avg = acc / _col(denom, acc)
+                        return torch.where(_col(apply, acc), 0.5 * (avg + p32),
+                                           p32).to(p.dtype)
 
-            params = tree.map(leaf, s["acc_sum"], params)
-            # punish the worst sender of each fired buffer (§IV-D1)
-            hit = fire & (min_acc < torch.inf)
-            worst = min_sender[:, :, None]
-            cur = s["rep"].gather(2, worst)[:, :, 0]
-            s["rep"].scatter_(2, worst, torch.where(
-                hit, torch.clamp(cur - rep_impl.penalty, rep_impl.floor,
-                                 rep_impl.initial), cur)[:, :, None])
-            keep = (~fire).to(torch.float32)
-            s["acc_sum"] = tree.map(lambda a: a * _col(keep, a), s["acc_sum"])
-            s["w_sum"] = s["w_sum"] * keep
-            s["buf_cnt"] = torch.where(fire, 0, s["buf_cnt"])
-            min_acc = torch.where(fire, torch.inf, min_acc)
-            min_sender = torch.where(fire, 0, min_sender)
-            fedavg_rounds += apply.sum(1)
+                    params = tree.map(leaf, s["acc_sum"], params)
+                    # punish the worst sender of each fired buffer (§IV-D1)
+                    hit = fire & (min_acc < torch.inf)
+                    worst = min_sender[:, :, None]
+                    cur = s["rep"].gather(2, worst)[:, :, 0]
+                    s["rep"].scatter_(2, worst, torch.where(
+                        hit, torch.clamp(cur - rep_impl.penalty, rep_impl.floor,
+                                         rep_impl.initial), cur)[:, :, None])
+                    keep = (~fire).to(torch.float32)
+                    s["acc_sum"] = tree.map(lambda a: a * _col(keep, a), s["acc_sum"])
+                    s["w_sum"] = s["w_sum"] * keep
+                    s["buf_cnt"] = torch.where(fire, 0, s["buf_cnt"])
+                    min_acc = torch.where(fire, torch.inf, min_acc)
+                    min_sender = torch.where(fire, 0, min_sender)
+                    fedavg_rounds += apply.sum(1)
 
-            # ---- 3. train + broadcast where the countdown expired;
-            # offline nodes' countdowns freeze. The countdowns and the set
-            # of trainers cover all N nodes on every rank
-            if self._membership:
-                next_train = next_train - torch.where(
-                    c["churn"][:, None], a_t, True).to(torch.int32)
-            else:
-                next_train = next_train - 1
-            trains = (next_train <= 0) & a_t
-            trains_np = trains.cpu().numpy()              # host sync 2 of 2
-            trained = bool(trains_np.any())
-            if trained:
-                rows = self._train_and_send(params, s["sent"],
-                                            trains_np[:, lo:lo + m], t)
-                if compact:
-                    b, r = rows // n, rows % n
-                    arrive[b[:, None], c["inv_dst"][b, r], c["inv_slot"][b, r]] = \
-                        t + c["inv_delay"][b, r]
-                elif sharded:
-                    # receiver-driven: slot k of a receiver is due delay
-                    # ticks after its k-th in-ball sender trains
-                    sched = trains[0][c["slot_src"]] & c["slot_valid"]
-                    live.copy_(torch.where(sched, t + c["slot_delay"], live))
-                else:
-                    sched = trains[:, None, :] & c["reach"]
-                    live.copy_(torch.where(sched, t + c["delay"], live))
-                fresh = self._fresh_intervals(
-                    t, np.flatnonzero(trains_np.any(axis=1)))
-                next_train = torch.where(trains, fresh * c["straggler"],
-                                         next_train)
-                broadcasts += trains_np
-            # the global test eval runs on record ticks only, one call a
-            # member
-            if t % cfg.record_every == 0:
-                acc_rows.append(torch.stack([
-                    self.scenario.test_stacked(tree.map(lambda x: x[b], params))
-                    .to(torch.float32) for b in range(bsz)]))
+                with span("dfl.simlax.train_and_send"):
+                    # ---- 3. train + broadcast where the countdown expired;
+                    # offline nodes' countdowns freeze. The countdowns and
+                    # the set of trainers cover all N nodes on every rank
+                    if self._membership:
+                        next_train = next_train - torch.where(
+                            c["churn"][:, None], a_t, True).to(torch.int32)
+                    else:
+                        next_train = next_train - 1
+                    trains = (next_train <= 0) & a_t
+                    trains_np = trains.cpu().numpy()          # host sync 2 of 2
+                    trained = bool(trains_np.any())
+                    if trained:
+                        rows = self._train_and_send(params, s["sent"],
+                                                    trains_np[:, lo:lo + m], t)
+                        if compact:
+                            b, r = rows // n, rows % n
+                            arrive[b[:, None], c["inv_dst"][b, r],
+                                   c["inv_slot"][b, r]] = t + c["inv_delay"][b, r]
+                        elif sharded:
+                            # receiver-driven: slot k of a receiver is due
+                            # delay ticks after its k-th in-ball sender trains
+                            sched = trains[0][c["slot_src"]] & c["slot_valid"]
+                            live.copy_(torch.where(sched, t + c["slot_delay"], live))
+                        else:
+                            sched = trains[:, None, :] & c["reach"]
+                            live.copy_(torch.where(sched, t + c["delay"], live))
+                        fresh = self._fresh_intervals(
+                            t, np.flatnonzero(trains_np.any(axis=1)))
+                        next_train = torch.where(trains, fresh * c["straggler"],
+                                                 next_train)
+                        broadcasts += trains_np
+                # the global test eval runs on record ticks only, one call a
+                # member
+                if t % cfg.record_every == 0:
+                    with span("dfl.scenario.test"):
+                        acc_rows.append(torch.stack([
+                            self.scenario.test_stacked(tree.map(lambda x: x[b], params))
+                            .to(torch.float32) for b in range(bsz)]))
 
-        final = dict(params=params, sent=s["sent"], rep=s["rep"],
-                     arrive=live, w_sum=s["w_sum"], buf_cnt=s["buf_cnt"],
-                     min_acc=min_acc, min_sender=min_sender)
-        final = {k: tree.map(lambda x: x.cpu(), v) for k, v in final.items()}
-        final["next_train"] = next_train.cpu()
-        final["fedavg_rounds"] = fedavg_rounds.cpu()
-        acc = (torch.stack(acc_rows, 1).cpu() if acc_rows
-               else torch.zeros((bsz, 0, m)))
-        extra = {}
-        if sharded:
-            final, acc, deliveries, due_ticks, extra = self._gather(
-                final, acc, deliveries, due_ticks)
-        acc = acc.numpy()
-        max_due = due_ticks.max(0) if cfg.ticks else np.zeros((bsz,), np.int64)
-        return [self._package(b, tree.map(lambda x: x[b], final),
-                              dict(broadcasts=broadcasts[b],
-                                   deliveries=int(deliveries[b]),
-                                   max_due=int(max_due[b])), acc[b], extra)
-                for b in range(bsz)]
+        with span("dfl.simlax.finish"):
+            final = dict(params=params, sent=s["sent"], rep=s["rep"],
+                         arrive=live, w_sum=s["w_sum"], buf_cnt=s["buf_cnt"],
+                         min_acc=min_acc, min_sender=min_sender)
+            final = {k: tree.map(lambda x: x.cpu(), v) for k, v in final.items()}
+            final["next_train"] = next_train.cpu()
+            final["fedavg_rounds"] = fedavg_rounds.cpu()
+            acc = (torch.stack(acc_rows, 1).cpu() if acc_rows
+                   else torch.zeros((bsz, 0, m)))
+            extra = {}
+            if sharded:
+                final, acc, deliveries, due_ticks, extra = self._gather(
+                    final, acc, deliveries, due_ticks)
+            acc = acc.numpy()
+            max_due = due_ticks.max(0) if cfg.ticks else np.zeros((bsz,), np.int64)
+            return [self._package(b, tree.map(lambda x: x[b], final),
+                                  dict(broadcasts=broadcasts[b],
+                                       deliveries=int(deliveries[b]),
+                                       max_due=int(max_due[b])), acc[b], extra)
+                    for b in range(bsz)]
 
     def _exchange(self, sent):
         """The sharded engine's pool of sent models: this rank's block,

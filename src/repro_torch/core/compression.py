@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree
+from repro_torch.core.spans import span
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.kernels.quantize.table import last_axis_blocking
 
@@ -107,7 +108,8 @@ def roundtrip_tree(tree_, block: int = BLOCK):
     """Quantize + immediately dequantize every leaf back to its own dtype:
     the simulators' wire model (the sender quantizes its broadcast once,
     every receiver sees the identical reconstruction)."""
-    return tree.unflatten(tree_, q_ops.roundtrip_tree(tree.leaves(tree_), block))
+    with span("dfl.wire"):
+        return tree.unflatten(tree_, q_ops.roundtrip_tree(tree.leaves(tree_), block))
 
 
 def leaf_wire_bytes(shape, dtype, compress) -> int:

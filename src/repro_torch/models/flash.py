@@ -35,6 +35,7 @@ import contextlib
 
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -131,8 +132,9 @@ class _FlashForward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal=ctx.causal,
-                                    window=ctx.window)
+        with span("dfl.flash.backward"):
+            dq, dk, dv = flash_backward(q, k, v, out, lse, dout, causal=ctx.causal,
+                                        window=ctx.window)
         return dq, dk, dv, None, None
 
 

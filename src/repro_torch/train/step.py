@@ -25,6 +25,7 @@ from repro_torch import device as device_lib
 from repro_torch import sharding as sh
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.core.spans import span
 from repro_torch.models import transformer
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.optim import schedules
@@ -46,9 +47,11 @@ def loss_and_grads(params, cfg, batch):
     params, and zero for a leaf the loss does not use (the token table of
     an audio model, which takes frame embeddings), as JAX's are."""
     leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
-    loss, metrics = transformer.train_loss(tree.unflatten(params, leaves), cfg,
-                                           batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with span("dfl.train.forward"):
+        loss, metrics = transformer.train_loss(tree.unflatten(params, leaves), cfg,
+                                               batch)
+    with span("dfl.train.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree.unflatten(params, grads)
@@ -60,30 +63,33 @@ def make_train_step(cfg: ArchConfig, opt: Optional[opt_lib.Optimizer] = None,
     accum = max(1, cfg.accum_steps)
 
     def train_step(state, batch):
-        if accum == 1:
-            _, metrics, grads = loss_and_grads(state["params"], cfg, batch)
-        else:
-            # microbatch over the batch dim: live activations shrink accum x
-            n = torch.tensor(float(accum))
-            grads = tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), state["params"])
-            metrics = None
-            for a in range(accum):
-                mb = tree.map(lambda x, a=a: x.reshape(
-                    accum, x.shape[0] // accum, *x.shape[1:])[a], batch)
-                _, m, g = loss_and_grads(state["params"], cfg, mb)
-                grads = tree.map(lambda acc, x: acc.add_(x.to(torch.float32)), grads, g)
-                m = {k: v / n.to(v.device) for k, v in m.items()}
-                metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
-            grads = tree.map(lambda g: g / n.to(g.device), grads)
-        grads, gnorm = opt_lib.clip_by_global_norm(grads, grad_clip)
-        updates, opt_state = opt.update(grads, state["opt"], state["params"],
-                                        state["step"])
-        del grads
-        params = opt_lib.apply_updates(state["params"], updates)
-        metrics = dict(metrics, grad_norm=gnorm)
-        return ({"params": params, "opt": opt_state, "step": state["step"] + 1},
-                metrics)
+        with span("dfl.train.step"):
+            if accum == 1:
+                _, metrics, grads = loss_and_grads(state["params"], cfg, batch)
+            else:
+                # microbatch over the batch dim: live activations shrink accum x
+                n = torch.tensor(float(accum))
+                grads = tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                       device=p.device), state["params"])
+                metrics = None
+                for a in range(accum):
+                    mb = tree.map(lambda x, a=a: x.reshape(
+                        accum, x.shape[0] // accum, *x.shape[1:])[a], batch)
+                    _, m, g = loss_and_grads(state["params"], cfg, mb)
+                    grads = tree.map(lambda acc, x: acc.add_(x.to(torch.float32)), grads, g)
+                    m = {k: v / n.to(v.device) for k, v in m.items()}
+                    metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
+                grads = tree.map(lambda g: g / n.to(g.device), grads)
+            with span("dfl.train.clip"):
+                grads, gnorm = opt_lib.clip_by_global_norm(grads, grad_clip)
+            with span("dfl.train.optimizer"):
+                updates, opt_state = opt.update(grads, state["opt"], state["params"],
+                                                state["step"])
+                del grads
+                params = opt_lib.apply_updates(state["params"], updates)
+            metrics = dict(metrics, grad_norm=gnorm)
+            return ({"params": params, "opt": opt_state, "step": state["step"] + 1},
+                    metrics)
 
     return train_step
 
