@@ -124,9 +124,12 @@ prints its last line):
    weights from a seed: (b) both flash kernels' log-sum-exp and output
    against attention_ref's (the sm90 kernel at B 2 x S 4096 x H 32, causal
    and with a 512 window; the simt kernel in fp32 at Dh 16 and in bf16 on
-   misaligned views) and the recompute backward against autograd through
+   misaligned views) and the model's backward against autograd through
    attention_ref; the forward timed with and without the lse beside
-   cuDNN's and the plain version, the backward beside cuDNN's; both wire
+   cuDNN's and the plain version; the sm90 backward kernel at the training
+   shape and at chatglm3-6b's heads (KV 2) against the plain recompute
+   backward on the same lse (relative L2 1e-2 a gradient), timed beside
+   its bound, the plain backward and cuDNN's backward alone; both wire
    kernels at the depth-1 llama3-8b tree (1.27 B elements) and at the
    sharded engine's (5, ...) LeNet trainers' tree; (a) one step at depth 1,
    B 1 x S 1024 through the kernels against the same step with the
@@ -134,7 +137,8 @@ prints its last line):
    leaf within 2e-2 relative L2), then the launcher's ``run_plain`` at
    depth 4 (of 32), B 2 x S 4096, 6 AdamW steps with remat full, counted:
    losses, grad norms, wall a step, peak memory, 8 sm90 flash launches a
-   step (4 layers x forward and remat recompute), params changed, and one
+   step (4 layers x forward and remat recompute) and 4 sm90 backward
+   launches (one a layer, none on the plain route), params changed, and one
    more step profiled (device idle share, where the time goes); (c) the
    launcher's ``run_dfl``: F = 2 ranks on cuda:0 under gloo, depth 1,
    B 1 x S 1024, 2 local steps, 2 rounds, ring ttl 1, int8 wire, counted
@@ -2360,12 +2364,11 @@ def check_flash_training(torch):
 
 def time_flash_training(torch, B, S, H, KH, Dh):
     """Phase 14b's times at the training shape: the sm90 forward without
-    and with the lse (the new output's cost), cuDNN's forward, the plain
-    version, and the recompute backward (plain PyTorch) beside autograd
-    through cuDNN's attention. Returns the lse row for the JSON line."""
+    and with the lse (the new output's cost), cuDNN's forward and the plain
+    version (``time_flash_backward`` times the backward). Returns the lse
+    row for the JSON line."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.models import flash as flash_model
     g = torch.Generator(device="cuda").manual_seed(15)
     q, k, v = _qkv(torch, g, B, S, H, KH, Dh, torch.bfloat16)
     out, lse = ops.flash_attention(q, k, v, return_lse=True)
@@ -2373,7 +2376,6 @@ def time_flash_training(torch, B, S, H, KH, Dh):
     err = max(float((out.float() - want.float()).abs().max()),
               float((lse - want_lse).abs().max()))
     del want, want_lse
-    dout = torch.randn(out.shape, generator=g, device="cuda").to(torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = {}
@@ -2381,42 +2383,93 @@ def time_flash_training(torch, B, S, H, KH, Dh):
             ("no_lse", lambda: ops.flash_attention(q, k, v), 20),
             ("lse", lambda: ops.flash_attention(q, k, v, return_lse=True), 20),
             ("library", lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 20),
-            ("plain", lambda: attention_ref(q, k, v, return_lse=True), 3),
-            ("backward", lambda: flash_model.flash_backward(
-                q, k, v, out, lse, dout, causal=True, window=0), 3)):
+            ("plain", lambda: attention_ref(q, k, v, return_lse=True), 3)):
         ms[label], method, _ = device_ms(fn, iters)
         ms[label + "_method"] = method
-    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (qt, kt, vt))
-
-    def library_backward():
-        o = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
-        torch.autograd.grad(o, (qr, kr, vr), dout.transpose(1, 2))
-
-    ms["library_fwd_bwd"], _, _ = device_ms(library_backward, 5)
     ops_count = 4 * Dh * _flash_pairs(S, 0) * B * H
     nbytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KH * Dh) + 4 * B * H * S
     b_ms, b_by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S)
-    bwd_ops = 2.5 * ops_count          # S, dP, dV, dQ, dK products
-    bwd_bound, bwd_by = bound_ms(2 * (4 * B * S * H * Dh + 4 * B * S * KH * Dh)
-                                 + 4 * B * H * S, bwd_ops, BF16_OPS_PER_S)
     shape = f"B={B} S={S} H={H} KH={KH} Dh={Dh} bfloat16 causal"
     print(f"time flash sm90 training forward {shape}: no lse {ms['no_lse']:.5f} ms, "
           f"with lse {ms['lse']:.5f} ms ({(ms['lse'] / ms['no_lse'] - 1) * 100:+.2f}%), "
           f"cuDNN {ms['library']:.5f} ms, plain {ms['plain']:.5f} ms, bound "
           f"{b_ms:.6f} ms ({b_by}); {ops_count / ms['lse'] / 1e9:.2f} TFLOP/s, "
           f"{b_ms / ms['lse']:.4f} of the bound [{ms['lse_method']}]")
-    print(f"time flash recompute backward (plain PyTorch, fp32 products of bf16 "
-          f"values) {shape}: {ms['backward']:.4f} ms; bound {bwd_bound:.5f} ms "
-          f"({bwd_by}); cuDNN forward + backward {ms['library_fwd_bwd']:.4f} ms")
     row = dict(ms=ms["lse"], plain_ms=ms["plain"], library_ms=ms["library"],
                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, shape=shape,
-               no_lse_ms=ms["no_lse"], backward_ms=ms["backward"],
-               backward_bound_ms=bwd_bound,
-               library_fwd_bwd_ms=ms["library_fwd_bwd"],
+               no_lse_ms=ms["no_lse"],
                timing=f"{ms['lse_method']}/{ms['plain_method']}/{ms['library_method']}")
-    del q, k, v, out, lse, dout, qt, kt, vt, qr, kr, vr
+    del q, k, v, out, lse, qt, kt, vt
     torch.cuda.empty_cache()
     return row
+
+
+def time_flash_backward(torch, B, S, H, KH, Dh):
+    """Phase 14b: the sm90 backward kernel (``ops.flash_attention_backward``)
+    at a causal bf16 training shape against the plain recompute backward on
+    the same inputs and lse and against a second call of itself (bitwise),
+    then timed beside its bound (the five products,
+    2.5 x the forward's FLOPs), the plain backward and the library
+    yardstick, cuDNN's backward alone through scaled_dot_product_attention
+    (timed here, never called by the port). Returns its row."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_backward
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v = _qkv(torch, g, B, S, H, KH, Dh, torch.bfloat16)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
+    dout = torch.randn(out.shape, generator=g, device="cuda").to(torch.bfloat16)
+    shape = f"B={B} S={S} H={H} KH={KH} Dh={Dh} bfloat16 causal"
+
+    def kernel():
+        return ops.flash_attention_backward(q, k, v, out, lse, dout, causal=True,
+                                            window=0)
+
+    def plain():
+        return flash_backward(q, k, v, out, lse, dout, causal=True, window=0)
+
+    reset_launches()
+    got = kernel()
+    torch.cuda.synchronize()
+    if dict(LAUNCHES) != {"flash_attention_bwd_sm90": 1}:
+        fail(f"flash backward at {shape}: launches {dict(LAUNCHES)}, not one sm90")
+    # its sums across blocks run in a fixed order: the same bits each call
+    if not all(torch.equal(a, b) for a, b in zip(kernel(), got)):
+        fail(f"flash backward sm90 at {shape}: two calls differ")
+    want = plain()
+    rel = [_rel_l2(a, b) for a, b in zip(got, want)]
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    if max(rel) > BWD_TOL["bfloat16"]:
+        fail(f"flash backward sm90 at {shape}: relative L2 dq/dk/dv {rel} > "
+             f"{BWD_TOL['bfloat16']}")
+    del got, want
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qr, kr, vr = (x.transpose(1, 2).detach().clone().requires_grad_(True)
+                  for x in (q, k, v))
+    o = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
+    dot = dout.transpose(1, 2)
+    ms = {}
+    for label, fn, iters in (
+            ("kernel", kernel, 20),
+            ("library", lambda: torch.autograd.grad(o, (qr, kr, vr), dot,
+                                                    retain_graph=True), 20),
+            ("plain", plain, 3)):
+        ms[label], ms[label + "_method"], _ = device_ms(fn, iters)
+    ops_count = 2.5 * 4 * Dh * _flash_pairs(S, 0) * B * H
+    nbytes = 2 * (4 * B * S * H * Dh + 4 * B * S * KH * Dh) + 4 * B * H * S
+    b_ms, b_by = bound_ms(nbytes, ops_count, BF16_OPS_PER_S)
+    print(f"time flash backward sm90 {shape}: kernel {ms['kernel']:.5f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}), {b_ms / ms['kernel']:.4f} of the bound, "
+          f"{ops_count / ms['kernel'] / 1e9:.2f} TFLOP/s; plain recompute "
+          f"{ms['plain']:.4f} ms; cuDNN backward {ms['library']:.5f} ms; relative L2 "
+          f"dq/dk/dv {[float(f'{x:.3e}') for x in rel]} (limit {BWD_TOL['bfloat16']}) "
+          f"[{ms['kernel_method']}/{ms['plain_method']}/{ms['library_method']}]")
+    del q, k, v, out, lse, dout, qr, kr, vr, o, dot
+    torch.cuda.empty_cache()
+    return dict(ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, max_rel_l2=max(rel),
+                shape=shape, timing=f"{ms['kernel_method']}/{ms['plain_method']}/"
+                                    f"{ms['library_method']}")
 
 
 def time_simt_lse(torch):
@@ -2496,7 +2549,9 @@ def check_train_kernels_vs_plain(torch):
     with flash_model.plain_route():
         loss_p, _, grads_p = step_lib.loss_and_grads(state["params"], cfg, batch)
     torch.cuda.synchronize()
-    if kernel_launches.get("flash_attention_sm90", 0) != 2 * depth or LAUNCHES:
+    if (kernel_launches.get("flash_attention_sm90", 0) != 2 * depth
+            or kernel_launches.get("flash_attention_bwd_sm90", 0) != depth
+            or kernel_launches.get("flash_backward_plain", 0) or LAUNCHES):
         fail(f"kernels-vs-plain step: launches {kernel_launches} with the "
              f"kernels, {dict(LAUNCHES)} on the plain route")
     gap = abs(float(loss_k) - float(loss_p))
@@ -2567,6 +2622,10 @@ def run_lm_training(torch):
             or launches.get("flash_attention_sm90", 0) != want):
         fail(f"lm train: flash launches {launches}, not {TRAIN_FLASH_A_STEP} a "
              f"step, all sm90 ({want})")
+    if (launches.get("flash_attention_bwd_sm90", 0) != TRAIN_DEPTH * steps
+            or launches.get("flash_backward_plain", 0)):
+        fail(f"lm train: flash backward launches {launches}, not one sm90 a "
+             f"layer a step ({TRAIN_DEPTH * steps}) and none plain")
     embed0 = layers.embed_init(torch.Generator(device="cuda").manual_seed(0),
                                cfg.vocab_size, cfg.d_model, dev)["table"]
     if (torch.equal(embed0, state["params"]["embed"]["table"])
@@ -2596,7 +2655,8 @@ def run_lm_training(torch):
     kinds = {}
     for n, sec in by_name.items():
         kind = ("flash forward kernel" if any(sym in n for sym in FLASH_SYMBOLS)
-                else "fp32 GEMM (sgemm: the recompute backward's products)"
+                else "flash backward kernel (delta, products, convert)"
+                if "flash_bwd_sm90" in n else "fp32 GEMM (sgemm)"
                 if "sgemm" in n else "bf16 GEMM" if any(
                     x in n for x in ("nvjet", "xmma", "gemm", "Kernel2")) else
                 "other (elementwise, reductions, copies)")
@@ -2694,7 +2754,9 @@ def run_lm(torch):
     t_phase = time.perf_counter()
     lse_err = check_flash_training(torch)
     rows = {"flash_attention_sm90": time_flash_training(torch, 2, 4096, 32, 8, 128),
-            "flash_attention": time_simt_lse(torch)}
+            "flash_attention": time_simt_lse(torch),
+            "flash_attention_bwd_sm90": time_flash_backward(torch, 2, 4096, 32, 8, 128)}
+    chatglm3_bwd = time_flash_backward(torch, 2, 4096, 32, 2, 128)   # chatglm3-6b's heads
     rows["flash_attention_sm90"]["max_abs_err"] = max(
         rows["flash_attention_sm90"]["max_abs_err"], lse_err["sm90"])
     rows["flash_attention"]["max_abs_err"] = max(
@@ -2706,11 +2768,13 @@ def run_lm(torch):
     elastic = run_lm_elastic(torch)
     rows["flash_attention_sm90"]["launches"] = train["launches"]["flash_attention_sm90"]
     rows["flash_attention"]["launches"] = elastic["launches"]["flash_attention"]
+    rows["flash_attention_bwd_sm90"]["launches"] = train["launches"]["flash_attention_bwd_sm90"]
     for name, row in (("quantize", q_lm), ("dequantize", dq_lm)):
         row["launches"] = sum(r["launches"].get(name, 0) for r in fed["ranks"])
     print(f"phase 14 took {time.perf_counter() - t_phase:.3f} s")
     return dict(rows=rows, wire_lm=(q_lm, dq_lm), wire_sharded=(q_sh, dq_sh),
-                check=check, train=train, fed=fed, elastic=elastic)
+                check=check, train=train, fed=fed, elastic=elastic,
+                chatglm3_backward=chatglm3_bwd)
 
 
 # ------------------------------------------------------------ phase 15
@@ -4003,7 +4067,8 @@ def main() -> int:
                         **{k: t[k] for k in ("per_leaf_ms", "llama3_layer", "lax",
                                              "sharded") if k in t}})
     # the training path's launch sites (phase 14): the forwards with the
-    # lse, and the wire kernels at the federation's llama3-8b depth-1 tree
+    # lse, the sm90 backward, and the wire kernels at the federation's
+    # llama3-8b depth-1 tree
     for kname, site, src, replaces, row in (
             ("flash_attention_sm90", "train_lse",
              "src/repro_torch/csrc/flash_attention_sm90.cu",
@@ -4012,6 +4077,10 @@ def main() -> int:
             ("flash_attention", "train_lse", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:82",
              lm["rows"]["flash_attention"]),
+            ("flash_attention_bwd_sm90", "train",
+             "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+             "none (the JAX backward is jnp: src/repro/models/flash.py:315)",
+             lm["rows"]["flash_attention_bwd_sm90"]),
             ("quantize", "llama3_depth1", "src/repro_torch/csrc/quantize.cu",
              "src/repro/kernels/quantize/quantize.py:37", lm["wire_lm"][0]),
             ("dequantize", "llama3_depth1", "src/repro_torch/csrc/quantize.cu",

@@ -305,69 +305,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ------------------------------------------------------------------ host
-// cuTensorMapEncodeTiled is a driver function; it is fetched through the
-// runtime's entry-point query, so the library links no libcuda and keeps
-// the plain C interface that ctypes loads.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                                  cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// Status codes beyond the runtime's: a failed encode returns
-// kEncodeFailed + its CUresult.
-constexpr int kEncodeFailed = 10000;
-
-// (Dh, S, heads, B) with element strides (1, ss, sh, sb); boxes of
-// 64 x rows x 1 x 1 (a box past Dh's end, as at Dh 80, is zero filled)
-int encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int dh, int seq,
-           int heads, int batch, long long ss, long long sh, long long sb,
-           int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)seq, (cuuint64_t)heads,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
-}
-
 template <int DH>
 int launch(Params& p, const void* q, const void* k, const void* v, int batch,
            long long q_sb, long long q_ss, long long q_sh, long long k_sb,
            long long k_ss, long long k_sh, long long v_sb, long long v_ss,
            long long v_sh, cudaStream_t stream) {
   using T = Tiles<DH>;
-  EncodeTiledFn fn = encode_fn();
+  sm90::EncodeTiledFn fn = sm90::encode_fn();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  int status = encode(fn, &p.tm_q, q, DH, p.Sq, p.H, batch, q_ss, q_sh, q_sb, kBQ);
+  int status = sm90::encode(fn, &p.tm_q, q, DH, p.Sq, p.H, batch, q_ss, q_sh, q_sb, kBQ);
   if (status == 0)
-    status = encode(fn, &p.tm_k, k, DH, p.Skv, p.KH, batch, k_ss, k_sh, k_sb, T::BK);
+    status = sm90::encode(fn, &p.tm_k, k, DH, p.Skv, p.KH, batch, k_ss, k_sh, k_sb, T::BK);
   if (status == 0)
-    status = encode(fn, &p.tm_v, v, DH, p.Skv, p.KH, batch, v_ss, v_sh, v_sb, T::BK);
+    status = sm90::encode(fn, &p.tm_v, v, DH, p.Skv, p.KH, batch, v_ss, v_sh, v_sb, T::BK);
   if (status != 0) return status;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_sm90_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -376,11 +326,6 @@ int launch(Params& p, const void* q, const void* k, const void* v, int batch,
   const dim3 grid((unsigned)(batch * p.H), (unsigned)((p.Sq + kBQ - 1) / kBQ));
   flash_fwd_sm90_kernel<DH><<<grid, kThreads, T::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-bool tma_ok(const void* ptr, long long sb, long long ss, long long sh) {
-  return ((uintptr_t)ptr % 16) == 0 && sb > 0 && ss > 0 && sh > 0 &&
-         sb % 8 == 0 && ss % 8 == 0 && sh % 8 == 0;
 }
 
 }  // namespace
@@ -394,8 +339,8 @@ extern "C" int flash_attention_fwd_sm90_bf16(
     int window, float scale, void* stream) {
   if (batch < 1 || H < 1 || KH < 1 || H % KH != 0 || Sq < 1 || Skv < 1 ||
       window < 0 || (long long)batch * H > 0x7fffffffLL ||
-      (Sq + kBQ - 1) / kBQ > 65535 || !tma_ok(q, q_sb, q_ss, q_sh) ||
-      !tma_ok(k, k_sb, k_ss, k_sh) || !tma_ok(v, v_sb, v_ss, v_sh) ||
+      (Sq + kBQ - 1) / kBQ > 65535 || !sm90::tma_ok(q, q_sb, q_ss, q_sh) ||
+      !sm90::tma_ok(k, k_sb, k_ss, k_sh) || !sm90::tma_ok(v, v_sb, v_ss, v_sh) ||
       ((uintptr_t)o % 4) != 0 || ((uintptr_t)lse % 4) != 0 || o_ss % 2 != 0 || o_sh % 2 != 0 || o_sb % 2 != 0)
     return (int)cudaErrorInvalidValue;
   Params p;

@@ -1,10 +1,13 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile loads,
-// warpgroup matrix multiplies (wgmma) and their shared-memory descriptors.
+// bulk copies and reductions, warpgroup matrix multiplies (wgmma) and their
+// shared-memory descriptors; and, on the host, the TMA tensor maps.
 // Included by the kernels that run on the tensor cores; every function is
-// device-side and inlined, so the header adds no symbol of its own.
+// inlined, so the header adds no symbol of its own.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -64,6 +67,78 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// one contiguous run of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completing on the barrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// global[dst .. dst + bytes) += shared[src ..) in fp32, done by the memory
+// system (the adds of concurrent reductions to one address do not race);
+// tracked by the issuing thread's bulk groups
+__device__ __forceinline__ void bulk_reduce_add_f32(void* dst, uint32_t src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;"
+      ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(src), "r"(bytes)
+      : "memory");
+}
+// global[dst .. dst + bytes) = shared[src ..), tracked as above
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// the issuing thread's bulk groups have read their shared memory (it may
+// be written again) / have completed
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// makes this thread's plain shared-memory stores visible to the async
+// proxy (wgmma operands, bulk copies) once a barrier has followed
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// orders this thread's global-memory accesses through the async proxy
+// (bulk copies and reductions) with its plain ones
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// A counter in global memory that orders blocks of one grid: a block waits
+// until it reads `count`, does its part, and adds one when that is done.
+// Only blocks of a lower linear index may be waited for (they started
+// first, so a waiting block never holds an SM that one it waits for needs).
+__device__ __forceinline__ void sem_wait(const int* sem, int count) {
+  int v;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(sem) : "memory");
+    if (v >= count) break;
+    if (polls > (1u << 24)) __trap();   // seconds: a block it waits for was lost
+  }
+}
+__device__ __forceinline__ void sem_post(int* sem) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;" ::"l"(sem) : "memory");
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void bar_sync(uint32_t id, uint32_t count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 // ----------------------------------------------------------------- wgmma
 // Shared-memory matrix descriptor for a tile written by TMA with 128-byte
 // swizzle (rows of 64 bf16 = 128 bytes, the 16-byte chunks of row r XORed
@@ -87,6 +162,10 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// all but the most recent committed group have completed
+__device__ __forceinline__ void wg_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
 }
 
 // Ties registers to the point after a wgmma wait: the compiler may not read
@@ -170,6 +249,32 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D(64 x 64, fp32) (+)= A(64 x 16) . B(16 x 64), both from shared memory:
+// TA = 0 reads A K-major (A's rows contiguous along K), TA = 1 MN-major
+// (A^T's rows: M contiguous); TB likewise for B (0: B^T's rows K-major, as
+// K in Q.K^T; 1: B's rows N-major, as V in P.V); scale_d = 0 overwrites D
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // D(64 x 64, fp32) += A(64 x 16, bf16 in registers) . B(16 x 64), B
@@ -314,6 +419,65 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ------------------------------------------------------------------ host
+// cuTensorMapEncodeTiled is a driver function; it is fetched through the
+// runtime's entry-point query, so a library links no libcuda and keeps the
+// plain C interface that ctypes loads.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                                  cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// Status codes beyond the runtime's: a failed encode returns
+// kEncodeFailed + its CUresult.
+constexpr int kEncodeFailed = 10000;
+
+// bf16 (Dh, S, heads, B) with element strides (1, ss, sh, sb); boxes of
+// 64 x rows x 1 x 1 with 128-byte swizzle (a box past Dh's end, as at Dh
+// 80, is zero filled, as are rows past S)
+inline int encode(EncodeTiledFn fn, CUtensorMap* map, const void* ptr, int dh,
+                  int seq, int heads, int batch, long long ss, long long sh,
+                  long long sb, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)seq, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
+}
+
+// what a TMA tensor map takes: a 16-byte aligned base and positive batch,
+// sequence and head strides that are multiples of 8 elements
+inline bool tma_ok(const void* ptr, long long sb, long long ss, long long sh) {
+  return ((uintptr_t)ptr % 16) == 0 && sb > 0 && ss > 0 && sh > 0 &&
+         sb % 8 == 0 && ss % 8 == 0 && sh % 8 == 0;
 }
 
 }  // namespace sm90

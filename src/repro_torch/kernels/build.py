@@ -7,10 +7,10 @@ file name carries a hash of the source and of every header under ``csrc/``
 (``*.cuh``), so an edited source or header is rebuilt and a stale library
 is never loaded. Nothing is compiled or loaded on import.
 
-``flash_attention_sm90.cu`` builds its TMA tensor maps with the driver's
+The sm90 flash sources build their TMA tensor maps with the driver's
 ``cuTensorMapEncodeTiled``, fetched at run time through the runtime's
-``cudaGetDriverEntryPoint``: no library links ``-lcuda``, and each keeps the
-plain C interface that ``ctypes`` loads.
+``cudaGetDriverEntryPoint`` (``sm90.cuh``): no library links ``-lcuda``, and
+each keeps the plain C interface that ``ctypes`` loads.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("quantize", "wfedavg", "flash_attention", "flash_attention_sm90")
+SOURCES = ("quantize", "wfedavg", "flash_attention", "flash_attention_sm90",
+           "flash_attention_bwd_sm90")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -54,8 +55,17 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "flash_attention_fwd_sm90_bf16": _FLASH,
         "flash_attention_sm90_smem_bytes": [_I],
     },
+    # q, k, v, out, dout, lse, dq, dk, dv, scratch; the scratch's floats;
+    # batch, H, KH, Sq, Skv, Dh; (batch, seq, head) strides of q, k, v, out,
+    # dout; causal, window, scale; stream
+    "flash_attention_bwd_sm90": {
+        "flash_attention_bwd_sm90_bf16": [_P] * 10 + [_LL] + [_I] * 6 + [_LL] * 15
+                                         + [_I, _I, _F, _P],
+        # batch, H, KH, Sq, Skv, Dh; out: the scratch's 4-byte words
+        "flash_attention_bwd_sm90_scratch": [_I] * 6 + [ctypes.POINTER(_LL)],
+    },
 }
-# flash_attention_sm90 returns ENCODE_FAILED + the CUresult when
+# the sm90 flash kernels return ENCODE_FAILED + the CUresult when
 # cuTensorMapEncodeTiled refuses a tensor map
 ENCODE_FAILED = 10000
 

@@ -1,4 +1,4 @@
-"""Wrapper for the flash-attention forward kernels.
+"""Wrappers for the flash-attention kernels: the forward and its backward.
 
 ``flash_attention`` takes the model's layout, q (B, Sq, H, Dh) and k/v
 (B, Skv, KH, Dh), strided, and hands the strides to the kernel: no
@@ -31,33 +31,60 @@ the window keep; q, k, v read once and O (and the lse) written once.
 (B, H, Sq) fp32, ``m + log(max(l, 1e-37))`` from its running max m and
 denominator l, which the training backward reads; a call without it passes
 a null pointer and the kernel writes none.
+
+``flash_attention_backward`` is the training VJP from (q, k, v, out, lse,
+dout). CPU and meta tensors take the plain version (``ref.flash_backward``;
+the cell report traces it, as the JAX package's backward is jnp); CUDA
+tensors are routed by ``_bwd_variant`` before any launch: ``"sm90"``
+(``csrc/flash_attention_bwd_sm90.cu``) for what the sm90 forward takes at
+Dh 64 or 128 with a TMA-ready out and dout, ``"plain"`` for the rest.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import LAUNCHES, build, report_meta
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref, flash_backward
 
 MAX_HEAD_DIM = 256
 SM90_HEAD_DIMS = (64, 80, 128, 256)
+SM90_BWD_HEAD_DIMS = (64, 128)
 _ENTRY = {torch.float32: "flash_attention_fwd_f32",
           torch.bfloat16: "flash_attention_fwd_bf16"}
+
+
+def _tma_ready(t, head_dims) -> bool:
+    """A bf16 (B, S, heads, Dh) tensor with Dh in ``head_dims`` that a TMA
+    tensor map takes as it is: a 16-byte aligned base, a unit head-dim
+    stride and batch, sequence and head strides that are positive multiples
+    of 8 elements."""
+    return (t.dtype == torch.bfloat16 and t.dim() == 4 and t.shape[-1] in head_dims
+            and t.data_ptr() % 16 == 0 and t.stride(3) == 1
+            and all(s > 0 and s % 8 == 0 for s in t.stride()[:3]))
 
 
 def _variant(q, k, v) -> str:
     """Which kernel a CUDA call launches: "sm90" when the Hopper kernel
     takes q, k, v as they are, else "simt". Pure: reads dtypes, shapes,
     strides and base addresses only."""
-    for t in (q, k, v):
-        if t.dtype != torch.bfloat16 or t.shape[-1] not in SM90_HEAD_DIMS:
-            return "simt"
-        if t.data_ptr() % 16 or t.stride(3) != 1:
-            return "simt"
-        if any(s <= 0 or s % 8 for s in t.stride()[:3]):
-            return "simt"
-    return "sm90"
+    return "sm90" if all(_tma_ready(t, SM90_HEAD_DIMS) for t in (q, k, v)) else "simt"
+
+
+def _bwd_variant(q, k, v, out, lse, dout) -> str:
+    """Which backward a CUDA call takes: "sm90" when the Hopper kernel takes
+    the tensors as they lie (bf16 q, k, v, out and dout at Dh 64 or 128,
+    each as a TMA tensor map takes it, out and dout of q's shape, and the
+    forward's contiguous (B, H, Sq) fp32 lse), else "plain": the simt
+    forward's shapes and the other head dims. Pure, as the forward's
+    ``_variant``: reads dtypes, shapes, strides and base addresses only."""
+    ok = (out.shape == q.shape == dout.shape
+          and all(_tma_ready(t, SM90_BWD_HEAD_DIMS) for t in (q, k, v, out, dout))
+          and lse.dtype == torch.float32 and lse.is_contiguous()
+          and tuple(lse.shape) == (q.shape[0], q.shape[2], q.shape[1]))
+    return "sm90" if ok else "plain"
 
 
 def kept_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
@@ -140,3 +167,50 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     if variant == "sm90":
         LAUNCHES["flash_attention_sm90"] += 1
     return (out, lse) if return_lse else out
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, *, causal, window, scale=None):
+    """The VJP of ``flash_attention`` from what its training call saved: q,
+    out, dout (B, Sq, H, Dh), k/v (B, Skv, KH, Dh) and the lse (B, H, Sq)
+    fp32. Returns (dq, dk, dv) in the dtypes of q, k, v; dk and dv hold the
+    sum over each kv head's G query heads.
+
+    CPU and meta tensors run ``ref.flash_backward``. For CUDA tensors
+    ``_bwd_variant`` picks the route before any launch: "sm90" launches the
+    hand-written backward (``csrc/flash_attention_bwd_sm90.cu``: a delta
+    and lse pass, the products on the tensor cores, fp32 accumulators
+    reduced across blocks in a fixed order, a bf16 pass) or raises; "plain"
+    runs ``ref.flash_backward``. ``LAUNCHES["flash_attention_bwd_sm90"]`` counts
+    the kernel's calls, ``LAUNCHES["flash_backward_plain"]`` the CUDA calls
+    that took the plain route."""
+    Dh = q.shape[-1]
+    scale = Dh ** -0.5 if scale is None else float(scale)
+    if not q.is_cuda or _bwd_variant(q, k, v, out, lse, dout) != "sm90":
+        if q.is_cuda:
+            LAUNCHES["flash_backward_plain"] += 1
+        return flash_backward(q, k, v, out, lse, dout, causal=causal, window=window,
+                              scale=scale)
+    B, Sq, H, _ = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    dq = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Skv, KH, Dh), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if B == 0 or Sq == 0 or Skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lib = build.load("flash_attention_bwd_sm90")
+    words = ctypes.c_longlong()   # the kernel's fp32 accumulators, counters and rows
+    build.check(lib.flash_attention_bwd_sm90_scratch(B, H, KH, Sq, Skv, Dh,
+                                                     ctypes.byref(words)),
+                "flash_attention_bwd_sm90")
+    scratch = torch.empty(words.value, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        status = lib.flash_attention_bwd_sm90_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch.data_ptr(), words.value, B, H, KH, Sq, Skv, Dh,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            *dout.stride()[:3], int(bool(causal)), int(window), scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(status, "flash_attention_bwd_sm90")
+    LAUNCHES["flash_attention_bwd_sm90"] += 1
+    return dq, dk, dv

@@ -41,7 +41,8 @@ from repro_torch import device as device_lib
 
 # the kernels a rank may launch; spawn builds them before it starts the
 # ranks, so the ranks only load them
-RANK_KERNELS = ("quantize", "flash_attention", "flash_attention_sm90")
+RANK_KERNELS = ("quantize", "flash_attention", "flash_attention_sm90",
+                "flash_attention_bwd_sm90")
 # how long spawn waits for the other ranks' errors after the first
 ERROR_GRACE_S = 2.0
 

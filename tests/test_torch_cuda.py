@@ -540,14 +540,17 @@ def test_int8_round_on_two_ranks_of_one_card_matches_its_oracle(cuda):
     (2, 100, 4, 2, 16, True, 0, "float32", "simt"),
     (2, 100, 4, 2, 16, True, 32, "bfloat16", "simt"),
     (1, 20, 2, 1, 8, True, 4, "float32", "simt"),
+    (1, 1024, 32, 2, 128, True, 0, "bfloat16", "sm90"),   # chatglm3's heads
 ])
 def test_flash_lse_and_backward_vs_plain(cuda, B, S, H, KH, Dh, causal, window,
                                          dtype, route):
     """Both kernels write the plain version's log-sum-exp (abs 2e-5 on
     values of ~5-10, chip_smoke's bound; -1e38 for a row without kept
-    keys), and the model's recompute backward on the kernel's lse matches
-    autograd through the plain version within the bf16 rounding of p, dout
-    and ds (relative L2 1e-2, chip_smoke's bound)."""
+    keys), and the model's backward on the kernel's lse matches autograd
+    through the plain version within the bf16 rounding of p, dout and ds
+    (relative L2 1e-2, chip_smoke's bound). The backward takes the sm90
+    kernel after an sm90 forward at Dh 64 or 128, the plain recompute
+    otherwise, once each, read from the launch counters."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -582,6 +585,9 @@ def test_flash_lse_and_backward_vs_plain(cuda, B, S, H, KH, Dh, causal, window,
     for a, b in zip(*grads):
         rel = float((a - b).norm() / b.norm())
         assert rel < 1e-2, rel
+    bwd = "sm90" if route == "sm90" and Dh in (64, 128) else "plain"
+    assert LAUNCHES["flash_attention_bwd_sm90"] == (bwd == "sm90")
+    assert LAUNCHES["flash_backward_plain"] == (bwd == "plain")
 
 
 def test_lse_of_rows_without_kept_keys_on_both_kernels(cuda):
@@ -602,12 +608,101 @@ def test_lse_of_rows_without_kept_keys_on_both_kernels(cuda):
                                    atol=2e-5)
 
 
+# (B, Sq, Skv, H, KH, Dh, causal, window, layout): G = H / KH 1, 4 and 16
+# (chatglm3's 32 / 2), Dh 64 and 128, ragged S 1000, rows past Skv + window
+# without a kept key, causal key tiles past Sq without a kept query, and q,
+# k, v as views of one fused (B, S, H + 2 KH, Dh) projection ("fused") or
+# with a padded head stride ("padded")
+BWD_CASES = [
+    (1, 1024, 1024, 8, 8, 128, True, 0, "contiguous"),
+    (2, 1000, 1000, 8, 2, 64, True, 0, "contiguous"),
+    (1, 1024, 1024, 32, 2, 128, True, 0, "fused"),
+    (1, 1000, 1000, 16, 1, 128, False, 0, "contiguous"),
+    (2, 1000, 1000, 4, 1, 64, False, 0, "fused"),
+    (1, 1024, 1024, 8, 2, 128, True, 300, "contiguous"),
+    (1, 1000, 1000, 8, 2, 64, False, 200, "padded"),
+    (1, 300, 100, 4, 1, 64, True, 50, "contiguous"),
+    (1, 300, 100, 16, 1, 128, True, 50, "padded"),
+    (1, 100, 300, 8, 2, 64, True, 0, "contiguous"),
+]
+
+
+def _bwd_inputs(g, B, Sq, Skv, H, KH, Dh, layout):
+    if layout == "fused":                  # Sq == Skv: one projection's views
+        x = torch.randn((B, Sq, H + 2 * KH, Dh), generator=g, device="cuda").bfloat16()
+        return x[:, :, :H], x[:, :, H:H + KH], x[:, :, H + KH:]
+    pad = 8 if layout == "padded" else 0   # head stride Dh + 8
+    return tuple(torch.randn((B, S, n, Dh + pad), generator=g, device="cuda")
+                 .bfloat16()[..., :Dh] for S, n in ((Sq, H), (Skv, KH), (Skv, KH)))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KH,Dh,causal,window,layout", BWD_CASES)
+def test_flash_backward_sm90_kernel_vs_plain(cuda, B, Sq, Skv, H, KH, Dh, causal,
+                                             window, layout):
+    """The sm90 backward's dq, dk, dv against the plain ``flash_backward`` on
+    the same bf16 inputs and lse: relative L2 1e-2 a gradient (chip_smoke's
+    bound; both round p, dout and ds to bf16 with fp32 sums, in another
+    order), every dk and dv element within 1e-2 of the gradient's largest
+    magnitude; one launch, no plain route, outputs in the inputs' dtype."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_backward
+    g = torch.Generator(device="cuda").manual_seed(Sq + H + Dh + window)
+    q, k, v = _bwd_inputs(g, B, Sq, Skv, H, KH, Dh, layout)
+    out, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    dout = torch.randn(out.shape, generator=g, device="cuda").bfloat16()
+    assert ops._bwd_variant(q, k, v, out, lse, dout) == "sm90"
+    reset_launches()
+    got = ops.flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                       window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd_sm90"] == 1
+    assert LAUNCHES["flash_backward_plain"] == 0
+    want = flash_backward(q, k, v, out, lse, dout, causal=causal, window=window)
+    for name, a, b, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert a.dtype == x.dtype and a.shape == x.shape, name
+        a, b = a.float(), b.float()
+        rel = float((a - b).norm() / b.norm())
+        assert rel < 1e-2, (name, rel)
+        if name != "dq":
+            gap = float((a - b).abs().max() / b.abs().max())
+            assert gap < 1e-2, (name, gap)
+    if Sq > Skv + window - 1 and causal and window:   # rows without a kept key
+        empty = torch.arange(Sq, device="cuda") >= Skv + window - 1
+        assert bool((got[0][:, empty] == 0).all())
+    if causal and Skv > Sq:                           # keys without a kept query
+        assert bool((got[1][:, Sq:] == 0).all()) and bool((got[2][:, Sq:] == 0).all())
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 1000), (False, 0)])
+def test_flash_backward_sm90_gives_the_same_bits_each_call(cuda, causal, window):
+    """The sm90 backward sums dq over the key tiles and dk, dv over a group's
+    query heads in a fixed order, so calls on the same inputs agree bitwise:
+    at chatglm3-6b's heads (H 32, KH 2: 16 heads a kv head) and S 4096, 32
+    key tiles add into a dq row. A remat="dots" step is held bitwise to a
+    "full" one on this."""
+    from repro_torch.kernels.flash_attention import ops
+    g = torch.Generator(device="cuda").manual_seed(28 + window)
+    q, k, v = _bwd_inputs(g, 1, 4096, 4096, 32, 2, 128, "fused")
+    out, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    dout = torch.randn(out.shape, generator=g, device="cuda").bfloat16()
+    first = ops.flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                         window=window)
+    for _ in range(3):
+        again = ops.flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                             window=window)
+        for name, a, b in zip(("dq", "dk", "dv"), again, first):
+            assert torch.equal(a, b), name
+
+
 def test_train_step_through_kernels_matches_plain_route(cuda):
     """One smoke-size llama3-8b step (bf16 activations) through the kernels
     and with the attention forced through the plain version: loss within
     2e-2, grads within 2e-2 relative L2 a leaf (chip_smoke's bound at full
-    width); the kernel launched twice a
-    layer (forward, remat recompute), the plain route never."""
+    width); the forward kernel launched twice a layer (forward, remat
+    recompute), the backward kernel once, the plain route never."""
     import dataclasses
 
     from repro_torch import tree
@@ -626,6 +721,8 @@ def test_train_step_through_kernels_matches_plain_route(cuda):
     loss_k, _, g_k = step.loss_and_grads(state["params"], cfg, batch)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention_sm90"] == 2 * cfg.num_layers
+    assert LAUNCHES["flash_attention_bwd_sm90"] == cfg.num_layers
+    assert LAUNCHES["flash_backward_plain"] == 0
     reset_launches()
     with flash.plain_route():
         loss_p, _, g_p = step.loss_and_grads(state["params"], cfg, batch)

@@ -178,6 +178,86 @@ def test_chip_smoke_simt_view_goes_to_simt(dh):
         assert y.data_ptr() % 16 == 8 and torch.equal(x, y)
 
 
+def _bwd_args(case):
+    """(q, k, v, out, lse, dout) for the backward's route: q, k, v as
+    ``_views`` lays them, out and dout contiguous bf16 (or as the case
+    says), the forward's contiguous (B, H, Sq) fp32 lse."""
+    q, k, v = _views(case)
+    B, S, H, Dh = q.shape
+    out = torch.zeros((B, S, H, Dh), dtype=q.dtype)
+    dout = torch.zeros_like(out)
+    lse = torch.zeros((B, H, S), dtype=torch.float32)
+    if "dout-offset" in case:          # dout 4 bytes past an aligned base
+        dout = torch.zeros(2 + out.numel(), dtype=q.dtype)[2:].view(out.shape)
+    if "dout-fp32" in case:
+        dout = dout.float()
+    if "out-stride" in case:           # out's head stride Dh + 4
+        out = torch.zeros((B, S, H, Dh + 4), dtype=q.dtype)[..., :Dh]
+    if "lse-view" in case:             # the lse transposed: not contiguous
+        lse = torch.zeros((B, S, H), dtype=torch.float32).transpose(1, 2)
+    if "lse-bf16" in case:
+        lse = lse.bfloat16()
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16 contiguous dh64", True), ("bf16 contiguous dh128", True),
+    ("fused bf16 dh64", True), ("fused bf16 dh128", True),
+    ("bf16 contiguous dh80", False), ("bf16 contiguous dh256", False),
+    ("fused bf16 dh256", False), ("bf16 contiguous dh16", False),
+    ("fp32 contiguous dh128", False), ("fp32 fused dh64", False),
+    ("offset bf16 dh128", False), ("stride bf16 dh128", False),
+    ("offset8 bf16 dh128", False),
+    ("bf16 contiguous dh128 dout-offset", False), ("bf16 contiguous dh128 dout-fp32", False),
+    ("bf16 contiguous dh64 out-stride", False), ("bf16 contiguous dh128 lse-view", False),
+    ("bf16 contiguous dh128 lse-bf16", False),
+])
+def test_backward_routing_rule(case, want):
+    """The sm90 backward takes bf16 at Dh 64 / 128 with TMA-legal q, k, v,
+    out and dout and the forward's contiguous fp32 lse; anything else, and
+    every CPU or meta tensor, takes the plain ``flash_backward``. Decided
+    from the tensors alone, before any launch, and the same answer each
+    time."""
+    args = _bwd_args(case)
+    route = "sm90" if want else "plain"
+    assert ops._bwd_variant(*args) == route
+    assert ops._bwd_variant(*args) == route           # pure: the same again
+    meta = [torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device="meta")
+            for x in args]
+    for tensors in (args, meta):                      # CPU and meta: the plain version
+        reset_launches()
+        got = ops.flash_attention_backward(*tensors, causal=True, window=0)
+        assert sum(LAUNCHES.values()) == 0
+        assert [tuple(x.shape) for x in got] == [tuple(x.shape) for x in tensors[:3]]
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 5), (False, 0)])
+def test_backward_wrapper_takes_the_plain_route_on_cpu_and_meta(causal, window):
+    """On CPU tensors ``flash_attention_backward`` is ``ref.flash_backward``
+    (bitwise, nothing launched, no plain-route count: that counts CUDA
+    calls); on meta tensors it traces the plain backward to meta outputs of
+    the gradients' shapes, as the dry-run cell report needs."""
+    from repro_torch.kernels.flash_attention.ref import flash_backward
+    B, S, H, KH, Dh = 1, 21, 4, 2, 64
+    q, k, v = (_t(x, torch.bfloat16) for x in _qkv(5, B, S, S, H, KH, Dh))
+    out, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    dout = torch.from_numpy(np.random.RandomState(6).standard_normal(
+        out.shape).astype(np.float32)).to(torch.bfloat16)
+    reset_launches()
+    got = ops.flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                       window=window)
+    want = flash_backward(q, k, v, out, lse, dout, causal=causal, window=window)
+    assert not LAUNCHES
+    for a, b, x in zip(got, want, (q, k, v)):
+        assert a.dtype == x.dtype and a.shape == x.shape and torch.equal(a, b)
+    meta = [torch.empty(x.shape, dtype=x.dtype, device="meta")
+            for x in (q, k, v, out, lse, dout)]
+    got = ops.flash_attention_backward(*meta, causal=causal, window=window)
+    assert not LAUNCHES
+    assert all(a.is_meta and a.shape == x.shape for a, x in zip(got, (q, k, v)))
+
+
 def test_wrapper_rejects_mismatched_shapes():
     q, k, v = (_t(x) for x in _qkv(0, 1, 8, 8, 3, 2, 8))
     with pytest.raises(ValueError):

@@ -28,7 +28,8 @@ from repro.models import flash as j_flash                        # noqa: E402
 
 from repro_torch.kernels import LAUNCHES, reset_launches         # noqa: E402
 from repro_torch.kernels.flash_attention import ops              # noqa: E402
-from repro_torch.kernels.flash_attention.ref import LSE_EMPTY, attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    LSE_EMPTY, attention_ref, flash_backward)
 from repro_torch.models import attention as p_attn               # noqa: E402
 from repro_torch.models import flash as p_flash                  # noqa: E402
 
@@ -94,13 +95,13 @@ def test_flash_backward_blocks_and_skipped_pairs(causal, window):
     q, k, v, dout = (torch.from_numpy(x.reshape(B, x.shape[1], -1, x.shape[-1]))
                      for x in _inputs(3, B, S, S, KH, G, Dh))
     out, lse = attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
-    one = p_flash.flash_backward(q, k, v, out, lse, dout, causal=causal,
-                                 window=window, block_q=64, block_kv=64)
+    one = flash_backward(q, k, v, out, lse, dout, causal=causal, window=window,
+                         block_q=64, block_kv=64)
     tq, tk, tv = (x.clone().requires_grad_(True) for x in (q, k, v))
     attention_ref(tq, tk, tv, causal=causal, window=window).backward(dout)
     for bkv in (4, 16):
-        many = p_flash.flash_backward(q, k, v, out, lse, dout, causal=causal,
-                                      window=window, block_q=8, block_kv=bkv)
+        many = flash_backward(q, k, v, out, lse, dout, causal=causal,
+                              window=window, block_q=8, block_kv=bkv)
         for a, b in zip(many, one):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6)
     for a, b in zip(one, (tq.grad, tk.grad, tv.grad)):
