@@ -215,6 +215,19 @@ prints its last line):
    25% of ``max_memory_allocated`` over the steps, the roofline bound
    max(compute, memory) at most 1.05 x the measured step, and the record's
    flash calls (8 a step, sm90) equal to the measured launches;
+19. (after 18) Trinity-Mini, the port's mixture of experts: (a) the
+   grouped product at the benchmark cell's shape (the held rows of 64
+   experts' gate projection, B 4 x S 8192 x top 8 over 128 experts: 131,072
+   rows x 2048 x 1024, bf16): ``models.moe.grouped_mm`` against its
+   per-expert loop of ``torch.matmul`` (all rows equal to bf16 rounding,
+   the rows past the last offset left out), timed with the loop, the
+   library call and the FLOP bound; (b) ``perfbench``'s
+   ``trinity-mini.local-steps`` cell run once at its own size (stage 1's 8
+   layers, 64 of 128 experts, half the vocabulary, B 4 x S 8192, H 2):
+   three steps through ``make_local_steps(make_train_step(cfg))`` held to
+   the plain reference (``perfbench/reference/afmoe.py``, fp32) on the
+   card, every check within its limit, no pair dropped, its tokens/s and
+   peak memory;
 17. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line.
 
@@ -246,6 +259,69 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------ phase 19
+TRINITY_ROWS, TRINITY_D, TRINITY_FF, TRINITY_HELD = 131_072, 2048, 1024, 64
+
+
+def time_grouped_product(torch):
+    """Phase 19a: ``grouped_mm`` (``torch._grouped_mm``) at the cell's shape
+    against its per-expert loop: the defined rows within bf16 rounding,
+    then the device time of each and the FLOP bound."""
+    from repro_torch.models import moe
+    g = torch.Generator(device="cuda").manual_seed(19)
+    rows, d, ff, E = TRINITY_ROWS, TRINITY_D, TRINITY_FF, TRINITY_HELD
+    x = torch.randn(2 * rows, d, device="cuda", generator=g).to(torch.bfloat16)
+    w = (torch.randn(E, d, ff, device="cuda", generator=g) * d ** -0.5).to(torch.bfloat16)
+    # uneven groups (the router's load), summing to ``rows``; half the buffer
+    # past the last offset, as the dropless layer sizes it
+    share = torch.rand(E, device="cuda", generator=g) + 0.5
+    counts = torch.floor(share / share.sum() * rows).to(torch.int64)
+    counts[-1] += rows - counts.sum()
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    ends = offs.tolist()
+
+    def loop():
+        out, start = [], 0
+        for e, end in enumerate(ends):
+            out.append(x[start:end] @ w[e])
+            start = end
+        return out
+
+    got = moe.grouped_mm(x, w, offs)[:rows].float()
+    want = torch.cat(loop()).float()
+    err = float((got - want).abs().max())
+    if err > 2e-2 * float(want.abs().max()):
+        fail(f"grouped_mm against its loop: max error {err}")
+    del got, want
+    ms, timing, names = device_ms(lambda: moe.grouped_mm(x, w, offs), 20)
+    plain, _, _ = device_ms(loop, 5)
+    bound, _ = bound_ms(0.0, 2.0 * rows * d * ff, BF16_OPS_PER_S)
+    print(f"grouped_mm at {rows} held rows x {d} x {ff}, {E} experts: {ms:.5f} ms "
+          f"({timing}; {', '.join(n[:60] for n in names)}), the per-expert loop "
+          f"{plain:.5f} ms, bound {bound:.5f} ms ({100 * bound / ms:.1f}%), max error {err:.3g}")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "max_abs_err": err,
+            "launches": "6 a MoE layer a step (3 forward, 3 recompute) + 6 backward",
+            "shape": f"{rows} rows x {d} x {ff}, {E} groups, bf16",
+            "timing": timing}
+
+
+def run_trinity(torch):
+    """Phase 19: 19a's row, then the benchmark cell once at its own size."""
+    row = time_grouped_product(torch)
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from perfbench import harness
+    torch.cuda.reset_peak_memory_stats()
+    line, checks = harness.run_cell("trinity-mini.local-steps", 2 ** 33 + 19, 10.0, 0)
+    bad = [(k, v, lim) for k, v, lim in checks if not v <= lim]
+    if bad or not line["correct"]:
+        fail(f"trinity-mini against the reference: {bad}")
+    torch.cuda.empty_cache()
+    return {"row": row, "checks": line["checks"], "metrics": line["metrics"]}
 
 
 # ----------------------------------------------------------------- timing
@@ -4040,6 +4116,12 @@ def main() -> int:
     cells = run_cell_report(torch, cell_cli, cli_dots["dots"]["timed"], smi)
     print("cell report: " + json.dumps(cells, sort_keys=True, default=str))
 
+    # phase 19: Trinity-Mini — the grouped product at the cell's shape, and
+    # the benchmark cell's three steps held to the plain reference
+    trinity = run_trinity(torch)
+    print("trinity: " + json.dumps({k: v for k, v in trinity.items() if k != "row"},
+                                   sort_keys=True, default=str))
+
     # phase 17: report
     kernels = []
     for kname, src, replaces, err in (
@@ -4136,6 +4218,15 @@ def main() -> int:
                         "library_ms": row.get("library_ms"),
                         "shape": row.get("shape", f"{row.get('rows')} rows, "
                                                   f"{row.get('elements')} elements")})
+    row = trinity["row"]
+    kernels.append({"name": "grouped_mm@trinity_moe", "route": "library",
+                    "source": "torch._grouped_mm (src/repro_torch/models/moe.py grouped_mm)",
+                    "replaces": "none (new: the port's dropless expert layer)",
+                    "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+                    "ms": row["ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"], "bound_by": "operations",
+                    "library_ms": row["ms"], "shape": row["shape"],
+                    "timing": row["timing"]})
     f2 = times["wfedavg@f2"]
     print("wfedavg at f2.w: " + json.dumps(f2, sort_keys=True))
     print("flash at gemma3 local heads: " + json.dumps(

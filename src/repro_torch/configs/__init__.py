@@ -1,6 +1,7 @@
 """Model configurations used by the port: LeNet-5 for the §VI federation
-(``lenet_dfl``) and the ten language models of the JAX package's zoo, with
-its ``get_config(arch_id)`` / ``smoke_config(arch_id)``."""
+(``lenet_dfl``), the ten language models of the JAX package's zoo
+(``ARCH_IDS``) and the port's own archs (``PORT_ONLY_IDS``: Trinity-Mini),
+with ``get_config(arch_id)`` / ``smoke_config(arch_id)``."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,11 +31,19 @@ _REGISTRY = {
 
 ARCH_IDS = tuple(_REGISTRY)
 
+# archs the JAX package lacks (configs with PORT_ONLY fields set)
+_PORT_ONLY = {
+    "trinity-mini": "repro_torch.configs.trinity_mini",
+}
+PORT_ONLY_IDS = tuple(_PORT_ONLY)
+ALL_IDS = ARCH_IDS + PORT_ONLY_IDS
+
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id not in _REGISTRY:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
-    return importlib.import_module(_REGISTRY[arch_id]).CONFIG
+    module = _REGISTRY.get(arch_id) or _PORT_ONLY.get(arch_id)
+    if module is None:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ALL_IDS)}")
+    return importlib.import_module(module).CONFIG
 
 
 def smoke_config(arch_id: str) -> ArchConfig:
@@ -52,7 +61,8 @@ def smoke_config(arch_id: str) -> ArchConfig:
         # prefill (per-row dispatch) and decode (flat dispatch) agree exactly
         moe = dataclasses.replace(
             moe, num_experts=4, top_k=min(moe.top_k, 2), d_ff_expert=64,
-            capacity_factor=4.0,
+            capacity_factor=4.0, held=None,
+            first_dense=min(moe.first_dense, 1),
         )
     return cfg.scaled(
         num_layers=n_layers,

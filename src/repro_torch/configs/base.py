@@ -1,9 +1,12 @@
 """Architecture / run configuration dataclasses.
 
 Copy of the JAX package's ``configs/base.py`` (same fields, defaults and
-rules). Every architecture is expressed as an :class:`ArchConfig`, a pure
-description; ``repro_torch.models.transformer`` consumes it and
-``repro_torch.serve`` pairs it with a batch and a prompt length.
+rules), plus the fields of ``PORT_ONLY``, which the port's own archs use
+(Trinity-Mini's AFMoE block) and which stay at their defaults, the JAX
+package's behaviour, in every arch of the JAX zoo. Every architecture is
+expressed as an :class:`ArchConfig`, a pure description;
+``repro_torch.models.transformer`` consumes it and ``repro_torch.serve``
+pairs it with a batch and a prompt length.
 """
 from __future__ import annotations
 
@@ -35,6 +38,38 @@ class MoEConfig:
     interleave: int = 1
     shared_expert: bool = False
     capacity_factor: float = 1.25
+    # --- port only (PORT_ONLY) ---------------------------------------------
+    # the first `first_dense` layers take the dense FFN whatever `interleave`
+    first_dense: int = 0
+    # "softmax": softmax scores, top-k renormalized, capacity dispatch (pairs
+    # past capacity dropped) and the Switch aux loss. "sigmoid": sigmoid
+    # scores, top-k of score + a per-layer expert bias (chooses, does not
+    # weight), the chosen scores renormalized and scaled by `route_scale`,
+    # dropless sorted dispatch, no aux loss: the bias moves by `bias_rate` a
+    # step toward an even load (``train.step``)
+    router: str = "softmax"
+    route_scale: float = 1.0
+    bias_rate: float = 0.0
+    # the experts this device holds, [start, stop); None: all of them
+    held: Optional[tuple[int, int]] = None
+
+    def __post_init__(self):
+        if self.router not in ("softmax", "sigmoid"):
+            raise ValueError(f"unknown router {self.router!r}")
+        lo, hi = self.held_range
+        if not 0 <= lo < hi <= self.num_experts:
+            raise ValueError(f"held experts {self.held} outside 0..{self.num_experts}")
+        if self.held is not None and self.router != "sigmoid":
+            raise ValueError("only the dropless (sigmoid) router holds a range of experts")
+
+    @property
+    def held_range(self) -> tuple[int, int]:
+        return (0, self.num_experts) if self.held is None else tuple(self.held)
+
+    @property
+    def num_held(self) -> int:
+        lo, hi = self.held_range
+        return hi - lo
 
 
 @dataclass(frozen=True)
@@ -77,7 +112,7 @@ class ArchConfig:
     # --- distribution hints -------------------------------------------------
     fsdp: bool = False               # additionally shard weights over the data axis
     optimizer: str = "adamw"         # adamw | adafactor | sgdm
-    remat: str = "full"              # full | dots | none
+    remat: str = "full"              # full | dots | none | layer (port only)
     # Query-block size for blocked (flash-style) attention at the jnp level.
     attn_block_q: int = 512
     attn_block_kv: int = 1024
@@ -92,6 +127,15 @@ class ArchConfig:
 
     # --- bookkeeping ---------------------------------------------------------
     source: str = ""                 # provenance note ([arXiv/hf]; tier)
+
+    # --- port only (PORT_ONLY): the AFMoE block (Trinity) ------------------
+    qk_norm: bool = False            # RMSNorm of each q and k head before RoPE
+    attn_gate: bool = False          # o * sigmoid(x W_g) before W_o
+    sandwich_norm: bool = False      # RMSNorm of each branch's output too
+    embed_scale: bool = False        # token embeddings times sqrt(d_model)
+    norm_eps: float = 1e-6           # RMSNorm / LayerNorm epsilon
+    # attention kinds that take RoPE; None: every kind
+    rope_kinds: Optional[Sequence[str]] = None
 
     def __post_init__(self):
         for k in self.block_pattern:
@@ -127,13 +171,44 @@ class ArchConfig:
         return (pat * reps)[: self.num_layers]
 
     def layer_is_moe(self, layer_idx: int) -> bool:
-        if self.moe is None:
+        if self.moe is None or layer_idx < self.moe.first_dense:
             return False
         return (layer_idx % self.moe.interleave) == (self.moe.interleave - 1)
+
+    def rope_on(self, kind: str) -> bool:
+        """Whether attention layers of ``kind`` rotate q and k."""
+        return self.rope != "none" and (self.rope_kinds is None
+                                        or kind in self.rope_kinds)
 
     def scaled(self, **overrides) -> "ArchConfig":
         """A reduced copy for smoke tests (same family, small dims)."""
         return dataclasses.replace(self, **overrides)
+
+
+# fields the JAX package's configs lack, with the default that is its behaviour
+PORT_ONLY = {
+    "arch": ("qk_norm", "attn_gate", "sandwich_norm", "embed_scale", "norm_eps",
+             "rope_kinds"),
+    "moe": ("first_dense", "router", "route_scale", "bias_rate", "held"),
+}
+
+
+def jax_fields(cfg: ArchConfig) -> dict:
+    """``dataclasses.asdict(cfg)`` without the ``PORT_ONLY`` fields: the
+    config as the JAX package spells it. Raises if one of them is off its
+    default (an arch the JAX package cannot express)."""
+    out = dataclasses.asdict(cfg)
+    for group, names in PORT_ONLY.items():
+        obj = cfg if group == "arch" else cfg.moe
+        if obj is None:
+            continue
+        d = out if group == "arch" else out["moe"]
+        for name in names:
+            default = next(f.default for f in dataclasses.fields(obj) if f.name == name)
+            if getattr(obj, name) != default:
+                raise ValueError(f"{cfg.name}: {group}.{name} is port only")
+            del d[name]
+    return out
 
 
 @dataclass(frozen=True)

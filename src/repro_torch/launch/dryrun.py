@@ -73,7 +73,7 @@ from repro_torch import device as device_lib
 from repro_torch import sharding as sh
 from repro_torch import tree
 from repro_torch.chain import attacks, scenarios, simlax, sweeps
-from repro_torch.configs import ARCH_IDS, SHAPES, cell_status, get_config
+from repro_torch.configs import ALL_IDS, ARCH_IDS, SHAPES, cell_status, get_config
 from repro_torch.configs.base import ATTN, ENC_ATTN, LOCAL_ATTN, SLSTM
 from repro_torch.core import compression
 from repro_torch.core import dfl as dfl_lib
@@ -91,7 +91,7 @@ SPAWN_TIMEOUT_S = 1800.0
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
-    ap.add_argument("--arch", choices=ARCH_IDS)
+    ap.add_argument("--arch", choices=ALL_IDS)
     ap.add_argument("--shape", choices=tuple(SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
@@ -567,8 +567,8 @@ def traced_counts(cfg, shape, mesh, rules, *, dfl=None, full=False):
         raise ValueError("a sequence loop beside attention is not linear in S")
 
     def at(units, s):
-        return _trace(cfg.scaled(num_layers=units * ul + n_rest), shape, mesh,
-                      rows, s, dfl)
+        return _trace(cfg.scaled(num_layers=transformer.lead_len(cfg) + units * ul
+                                 + n_rest), shape, mesh, rows, s, dfl)
 
     if full or n_units <= 2:
         units = [] if full or n_units == 0 else [n_units]
@@ -602,7 +602,7 @@ def _row_split_products(cfg, mesh, rules) -> dict:
     through the all-to-all."""
     params, axes = step_lib.abstract_params(cfg)
     out = dict(features=0.0, count=0, unit_features=0.0, unit_count=0)
-    for key in ("embed", "units", "rest"):
+    for key in ("embed", "lead", "units", "rest"):
         if key not in axes:
             continue
         stacked = key == "units"
@@ -650,7 +650,7 @@ def collective_model(cfg, shape, mesh, rules, *, dfl=None, receipts=0):
     decode = shape.kind == "decode" and dfl is None
     tokens = rows * (1 if decode else seq)
     fwd = receipts if dfl is not None else 1
-    recompute = train and cfg.remat == "full"
+    recompute = train and cfg.remat in ("full", "layer")
     passes = fwd + (2 if recompute else 1 if train else 0)
     if model > 1:
         rs = _row_split_products(cfg, mesh, rules)
@@ -671,9 +671,12 @@ def collective_model(cfg, shape, mesh, rules, *, dfl=None, receipts=0):
             m = cfg.moe
             n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
             n_rows, per_row = (1, shape.global_batch) if decode else (rows, seq)
-            cap = max(1, math.ceil(per_row * m.top_k / m.num_experts
-                                   * m.capacity_factor))
-            buf = n_rows * m.num_experts * cap * cfg.d_model * 4
+            if m.router == "sigmoid":     # dropless: each (token, choice) pair, bf16
+                buf = n_rows * per_row * m.top_k * cfg.d_model * 2
+            else:
+                cap = max(1, math.ceil(per_row * m.top_k / m.num_experts
+                                       * m.capacity_factor))
+                buf = n_rows * m.num_experts * cap * cfg.d_model * 4
             out["all-to-all"] = [2.0 * buf * n_moe * passes, 2 * n_moe * passes]
     if train and any(mesh.shape.get(a, 1) > 1 for a in ("pod", "data")):
         params, axes = step_lib.abstract_params(cfg)

@@ -70,8 +70,9 @@ def effective_param_count(cfg, total_params: int, embed_params: int,
     if active and cfg.moe is not None:
         m = cfg.moe
         n_moe_layers = sum(1 for i in range(cfg.num_layers) if cfg.layer_is_moe(i))
-        expert_params = 3 * cfg.d_model * m.d_ff_expert * m.num_experts
-        inactive_frac = (m.num_experts - m.top_k) / m.num_experts
+        # of the held experts, top_k x held / num_experts act a token
+        expert_params = 3 * cfg.d_model * m.d_ff_expert * m.num_held
+        inactive_frac = (m.num_held - m.top_k * m.num_held / m.num_experts) / m.num_held
         n -= int(n_moe_layers * expert_params * inactive_frac)
     return n
 

@@ -23,7 +23,10 @@ NEG_INF = -2.0e38
 
 
 def attn_init(generator, cfg, device, lead=(), dtype=None):
-    """q, k, v, o dense params; the weights stored in ``dtype``."""
+    """q, k, v, o dense params; the weights stored in ``dtype``. With
+    ``cfg.qk_norm`` an RMSNorm scale a head dim for q and for k
+    (``q_norm``, ``k_norm``); with ``cfg.attn_gate`` the output gate ``g``
+    (d -> H x Dh)."""
     d, H, KH, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     kw = dict(use_bias=cfg.use_bias, device=device, lead=lead, dtype=dtype)
     p = {"q": L.dense_init(generator, d, (H, Dh), **kw),
@@ -32,26 +35,42 @@ def attn_init(generator, cfg, device, lead=(), dtype=None):
          "o": L.dense_init(generator, H * Dh, (d,), **kw)}
     # o as (H, Dh, d) for a 2-dim contraction
     p["o"]["w"] = p["o"]["w"].reshape(*lead, H, Dh, d)
+    if cfg.attn_gate:
+        p["g"] = L.dense_init(generator, d, (H, Dh), **kw)
+    if cfg.qk_norm:
+        p["q_norm"] = L.norm_init(Dh, "rmsnorm", False, device, lead)
+        p["k_norm"] = L.norm_init(Dh, "rmsnorm", False, device, lead)
     return p
 
 
-def _rotary_dim(cfg):
-    if cfg.rope == "none":
+def _rotary_dim(cfg, kind):
+    if not cfg.rope_on(kind):
         return 0
     if cfg.rope == "partial":  # GLM-style 2d rope: rotate half the head dims
         return cfg.resolved_head_dim // 2
     return cfg.resolved_head_dim
 
 
-def _project_qkv(p, cfg, x, positions):
+def _project_qkv(p, cfg, x, positions, kind):
     q = L.dense_apply(p["q"], x)          # (B,S,H,Dh)
     k = L.dense_apply(p["k"], x)          # (B,S,KH,Dh)
     v = L.dense_apply(p["v"], x)
-    rd = _rotary_dim(cfg)
+    if cfg.qk_norm:
+        q = L.norm_apply(p["q_norm"], q, "rmsnorm", cfg.norm_eps)
+        k = L.norm_apply(p["k_norm"], k, "rmsnorm", cfg.norm_eps)
+    rd = _rotary_dim(cfg, kind)
     if rd:
         q = L.apply_rope(q, positions, rotary_dim=rd, theta=cfg.rope_theta)
         k = L.apply_rope(k, positions, rotary_dim=rd, theta=cfg.rope_theta)
     return q, k, v
+
+
+def _output(p, cfg, x, ctx):
+    """ctx (B, S, H, Dh) -> (B, S, d): times sigmoid(x W_g) first with
+    ``cfg.attn_gate``."""
+    if cfg.attn_gate:
+        ctx = ctx * torch.sigmoid(L.dense_apply(p["g"], x))
+    return L.dense_apply(p["o"], ctx, contract_dims=2)
 
 
 def _mask_bias(q_pos, k_pos, *, causal, window, kv_valid=None):
@@ -140,7 +159,7 @@ def attn_apply(p, cfg, x, positions, *, kind, cache=None):
     cache filled in place."""
     B, S, _ = x.shape
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _project_qkv(p, cfg, x, positions, kind)
     qg = q.reshape(B, S, KH, H // KH, Dh)
     if cfg.attn_impl == "flash":
         causal = kind != ENC_ATTN
@@ -154,7 +173,7 @@ def attn_apply(p, cfg, x, positions, *, kind, cache=None):
     else:
         ctx = _blocked_global(qg, k, v, causal=kind != ENC_ATTN, q_offset=0,
                               block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv)
-    y = L.dense_apply(p["o"], ctx.reshape(B, S, H, Dh), contract_dims=2)
+    y = _output(p, cfg, x, ctx.reshape(B, S, H, Dh))
     if cache is not None:
         _prefill_cache(cache, k, v, kind, seq_len=S)
     return y, cache
@@ -190,7 +209,7 @@ def attn_decode(p, cfg, x, position: int, cache, *, kind):
     B = x.shape[0]
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     pos = torch.full((B, 1), position, dtype=torch.int64, device=x.device)
-    q, k, v = _project_qkv(p, cfg, x, pos)  # q (B,1,H,Dh); k/v (B,1,KH,Dh)
+    q, k, v = _project_qkv(p, cfg, x, pos, kind)  # q (B,1,H,Dh); k/v (B,1,KH,Dh)
     length = cache["k"].shape[1]
     slot = position % length if kind == LOCAL_ATTN else position
     if not 0 <= slot < length:
@@ -212,5 +231,4 @@ def attn_decode(p, cfg, x, position: int, cache, *, kind):
     else:
         bias = _mask_bias(q_pos, s_idx, causal=True, window=0)
     ctx = _sdpa(qg, cache["k"], cache["v"], bias).reshape(B, 1, H, Dh)
-    y = L.dense_apply(p["o"], ctx, contract_dims=2)
-    return y, cache
+    return _output(p, cfg, x, ctx), cache

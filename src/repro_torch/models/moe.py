@@ -1,4 +1,4 @@
-"""Mixture-of-experts FFN with capacity-based dispatch.
+"""Mixture-of-experts FFN: capacity-based dispatch, and a dropless one.
 
 Port of the JAX package's ``models/moe.py`` with its param layout (a
 ``router`` dense, expert stacks ``gate``/``up`` (E, d, ff) and ``down``
@@ -23,6 +23,21 @@ router and the shared expert are not. The top-k breaks ties toward the
 lower expert index, as ``jax.lax.top_k`` does (a stable descending sort).
 The expert products are plain batched matmuls (``torch.einsum``), as they
 are XLA einsums outside any kernel in the JAX package.
+
+The dropless path (``moe_dropless``, ``router="sigmoid"``: Trinity's AFMoE
+layer; the JAX package has none) routes every token over all
+``num_experts`` in fp32 (sigmoid scores; top-k of score + the layer's
+expert bias, which chooses and does not weight; the chosen scores
+renormalized and scaled) and computes only the experts this device holds
+(``held``, [lo, hi)): a stable sort of the (token, choice) pairs by held
+expert, with the pairs routed elsewhere after them, then the grouped
+products (``grouped_mm``) over the held experts' row groups and a combine
+in pair order. No pair is dropped and nothing waits on the host: every
+buffer is sized to the upper bound of held pairs (tokens x top_k), the
+group offsets stay on the device, and the rows past the last offset are
+kept out of the combine and out of the tokens' gradients (the grouped
+product leaves them undefined). It returns each expert's load, which the
+train step turns into the bias update and the route counters.
 """
 from __future__ import annotations
 
@@ -31,6 +46,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.spans import span
+from repro_torch.kernels import report_meta
 from repro_torch.models import layers as L
 
 EXPERT_DTYPE = torch.bfloat16    # the expert stacks' dtype at use
@@ -45,9 +62,9 @@ def moe_init(generator, cfg, device, lead=(), dtype=None):
     m = cfg.moe
     d, E, ff = cfg.d_model, m.num_experts, m.d_ff_expert
 
-    def stack(shape, fan_in):
+    def stack(shape, fan_in):     # the held experts' matrices (all by default)
         return L._trunc(generator, shape, 1.0 / math.sqrt(fan_in), device,
-                        (*lead, E), dtype)
+                        (*lead, m.num_held), dtype)
 
     p = {"router": L.dense_init(generator, d, (E,), use_bias=False, device=device,
                                 lead=lead, dtype=dtype),
@@ -135,3 +152,183 @@ def moe_apply(p, cfg, x):
         y = y + L.mlp_apply(p["shared"], x)
     return y, aux
 
+
+
+# ------------------------------------------------------------ dropless path
+# callables given each dropless layer's choices (N, top_k) as it routes
+# (forward and remat recompute alike), on the device: a check's taps
+ROUTE_TAPS: list = []
+
+
+class RouteCounters:
+    """Sums over the train steps' dropless MoE layers, kept on the device
+    (``add`` launches a few kernels and never waits on the host); ``read``
+    copies them out once (one host sync) and starts again. Per (step,
+    layer): the (token, choice) pairs routed to held experts, routed
+    elsewhere, and dropped (|pairs routed to held experts - rows the
+    grouped products computed|: a pair lost, or one computed that no token
+    routed there; 0 by construction), and the largest held expert's load
+    over the held experts' mean (summed over the layers and steps)."""
+
+    FIELDS = ("held_slots", "other_slots", "dropped", "layer_steps", "load_ratio_sum")
+
+    def __init__(self):
+        self.sums = None
+
+    def add(self, load, held):
+        """``load`` (layers, num_experts + 1) as the train loss reports it;
+        a meta trace's (the cell report's) counts nothing."""
+        if load.is_meta:
+            return
+        lo, hi = held
+        n = load.to(torch.float64)
+        mine = n[:, lo:hi]
+        held_sum = mine.sum()
+        ratio = mine.amax(-1) / mine.mean(-1).clamp_min(1e-30)
+        v = torch.stack([held_sum, n[:, :-1].sum() - held_sum,
+                         (mine.sum(-1) - n[:, -1]).abs().sum(),
+                         torch.full((), n.shape[0], dtype=torch.float64, device=n.device),
+                         ratio.sum()])
+        self.sums = v if self.sums is None else self.sums.add_(v)
+
+    def read(self) -> dict:
+        if self.sums is None:
+            return {}
+        out = dict(zip(self.FIELDS, self.sums.tolist()))
+        self.sums = None
+        return out
+
+
+ROUTES = RouteCounters()
+
+
+def update_expert_bias(bias, load, rate):
+    """The aux-loss-free balancing step, in place on ``bias`` (layers,
+    experts): with n_e the pairs routed to expert e over this device's
+    tokens (``load``'s first num_experts columns), delta = rate x sign(
+    mean(n) - n), bias += delta - mean(delta)."""
+    n = load[:, :bias.shape[1]].to(torch.float32)
+    delta = rate * torch.sign(n.mean(-1, keepdim=True) - n)
+    bias.add_(delta - delta.mean(-1, keepdim=True))
+
+
+class _GroupedMeta(torch.autograd.Function):
+    """The grouped product on meta tensors: empty outputs, its FLOPs and
+    bytes reported (``kernels.report_meta``) for the forward and for the
+    backward's two products."""
+
+    @staticmethod
+    def forward(ctx, x, w, offs, rows):
+        ctx.rows = rows
+        ctx.x = (x.shape, x.dtype)                   # shapes only: nothing kept alive
+        ctx.w = (w.shape, w.dtype)
+        _report_grouped(rows, ctx.x, ctx.w)
+        return x.new_empty((x.shape[0], w.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, dy):
+        _report_grouped(ctx.rows, ctx.x, ctx.w)      # dx = dy w^T
+        _report_grouped(ctx.rows, ctx.x, ctx.w)      # dw = x^T dy
+        return (dy.new_empty(ctx.x[0], dtype=ctx.x[1]),
+                dy.new_empty(ctx.w[0], dtype=ctx.w[1]), None, None)
+
+
+def _report_grouped(rows, x, w):
+    (G, K, N), size = w[0], w[1].itemsize
+    report_meta("grouped_mm", flops=2.0 * rows * K * N,
+                nbytes=rows * (K + N) * x[1].itemsize + G * K * N * size)
+
+
+def grouped_mm(x, w, offs, rows=None):
+    """Row groups of ``x`` (M, K) times their own matrix of ``w`` (G, K, N):
+    rows [offs[g-1], offs[g]) by w[g] (``offs`` (G,) int32 ends, on x's
+    device). Rows from offs[-1] on are undefined in the result and in x's
+    gradient. CUDA: ``torch._grouped_mm`` (bf16 operands, fp32 sums, on
+    sm90) and its backward; CPU: a loop over the groups (one host read of
+    the offsets); meta: empty, its work reported for ``rows`` rows
+    (default M)."""
+    if x.is_meta:
+        return _GroupedMeta.apply(x, w, offs, x.shape[0] if rows is None else rows)
+    if x.is_cuda:
+        return torch._grouped_mm(x, w, offs=offs)
+    ends = offs.tolist()
+    out = x.new_zeros((x.shape[0], w.shape[-1]))
+    start = 0
+    for g, end in enumerate(ends):
+        if end > start:
+            out[start:end] = x[start:end] @ w[g]
+        start = end
+    return out
+
+
+class _ZeroTailGrad(torch.autograd.Function):
+    """Identity forward; the backward zeroes the gradient's rows from
+    ``end`` (a 0-d tensor) on: the grouped product's undefined rows."""
+
+    @staticmethod
+    def forward(ctx, x, end):
+        ctx.save_for_backward(end)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (end,) = ctx.saved_tensors
+        rows = torch.arange(g.shape[0], device=g.device)
+        return torch.where((rows < end)[:, None], g, 0), None
+
+
+def sigmoid_route(p, m, x, bias=None):
+    """x (N, d) -> (weights (N, k) fp32, choices (N, k) int64), in fp32:
+    s = sigmoid(x W_r) over all experts, the top k of s + bias (ties to
+    the lower index), their s renormalized (over their sum + 1e-20) and
+    times ``route_scale``."""
+    s = torch.sigmoid(x.to(torch.float32) @ p["router"]["w"].to(torch.float32))
+    _, choices = top_k(s if bias is None else s + bias, m.top_k)
+    w = torch.gather(s, 1, choices)
+    return w / (w.sum(-1, keepdim=True) + 1e-20) * m.route_scale, choices
+
+
+def moe_dropless(p, cfg, x, bias=None):
+    """x (B, S, d) -> (y (B, S, d), load): the held experts' part of the
+    routed FFN plus the shared expert. ``bias`` (num_experts,) fp32 or
+    None (zeros). ``load`` (num_experts + 1,) int64 on the device: the
+    (token, choice) pairs routed to each expert, over all experts, then
+    the pairs the grouped products computed (the held ones: none is
+    dropped)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    N, k, E = B * S, m.top_k, m.num_experts
+    lo, hi = m.held_range
+    Eh, P = hi - lo, N * k
+    x2 = x.reshape(N, d)
+    dev = x.device
+    with span("dfl.moe.route"):
+        w, choices = sigmoid_route(p, m, x2, bias)
+        for tap in ROUTE_TAPS:
+            tap(choices)
+        flat = choices.reshape(P)
+        ones = torch.ones(P, dtype=torch.int64, device=dev)
+        load = torch.zeros(E + 1, dtype=torch.int64, device=dev).scatter_add_(0, flat, ones)
+    with span("dfl.moe.dispatch"):
+        key = torch.where((flat >= lo) & (flat < hi), flat - lo, Eh)
+        order = torch.sort(key, stable=True).indices       # held experts' rows first
+        counts = torch.zeros(Eh + 1, dtype=torch.int64, device=dev).scatter_add_(0, key, ones)
+        offs = torch.cumsum(counts[:Eh], 0).to(torch.int32)
+        end = offs[-1]
+        load[E] = end
+        xs = _ZeroTailGrad.apply(x2[order // k], end)      # (P, d)
+    with span("dfl.moe.experts"):
+        dt = x.dtype
+        rows = P * Eh // E if x.is_meta else None          # an even load, for the meta trace
+        g = grouped_mm(xs, p["gate"].to(dt), offs, rows)
+        u = grouped_mm(xs, p["up"].to(dt), offs, rows)
+        ye = grouped_mm(F.silu(g) * u, p["down"].to(dt), offs, rows)
+    with span("dfl.moe.combine"):
+        valid = torch.arange(P, device=dev) < end
+        ye = torch.where(valid[:, None], ye, 0)
+        inv = torch.empty_like(order).scatter_(0, order, torch.arange(P, device=dev))
+        y = torch.einsum("nk,nkd->nd", w.to(dt), ye[inv].reshape(N, k, d))
+    if "shared" in p:
+        with span("dfl.moe.shared"):
+            y = y + L.mlp_apply(p["shared"], x2)
+    return y.reshape(B, S, d), load

@@ -7,7 +7,10 @@ cache layout: a config's layer stack is grouped into identical repeating
 leaf stacked over ``n_units`` in ``params["units"]`` (a tuple, one dict per
 layer of the unit), and ``num_layers % unit_len`` trailing layers in
 ``params["rest"]``. A Python loop over the stacked units takes the place of
-``lax.scan``.
+``lax.scan``. A config whose MoE layers start after ``moe.first_dense``
+dense layers (Trinity; no arch of the JAX package) keeps those in
+``params["lead"]``, unstacked, ahead of the units, which then group the
+layers after them.
 
 Entry points:
     init(generator, cfg, device, dtype=None)          -> params
@@ -20,7 +23,9 @@ Entry points:
 Every layer kind of the JAX package runs: attention (global, local,
 encoder), RG-LRU (``models.rglru``), mLSTM and sLSTM (``models.xlstm``,
 blocks without norm2 and FFN), dense and MoE FFNs (``models.moe``, whose
-per-layer load-balancing aux is summed over the stack), and the two
+per-layer load-balancing aux is summed over the stack; the dropless
+sigmoid-routed layers instead report each expert's load, a row a layer,
+and route by the rows of ``expert_bias``), and the two
 modality frontend stubs: ``frontend="audio"`` takes ``frame_embeds``
 (B, S, d) in place of tokens, ``frontend="vision"`` writes
 ``patch_embeds`` over positions [0, num_patch_tokens), and
@@ -38,7 +43,11 @@ but saves the outputs of its matrix products without batch dims, the
 dense projections (``aten.mm`` / ``aten.addmm``), and recomputes the rest:
 attention's score and P.V products, the MoE expert and xLSTM einsums
 (batched ``bmm``) and the flash kernel, which is not a product;
-``"none"`` keeps every activation. Each loss chunk's unembedding and cross
+``"none"`` keeps every activation; ``"layer"`` (the port's own, for
+configs whose unit is too large to recompute at once: Trinity) checkpoints
+each layer on its own, the leading and trailing ones too, so the backward
+holds one layer's activations at a time for the same FLOPs as ``"full"``.
+Each loss chunk's unembedding and cross
 entropy is checkpointed too (whatever the policy), so the (B, LOSS_CHUNK,
 vocab) fp32 logits of only one chunk are alive at a time.
 """
@@ -74,12 +83,39 @@ def unit_len(cfg) -> int:
     return base
 
 
-def unit_layout(cfg) -> tuple[int, int, list[tuple[str, bool]]]:
-    """(n_units, n_rest, unit_entries) where entries = (kind, is_moe)."""
-    ul = unit_len(cfg)
+def lead_len(cfg) -> int:
+    """Layers ahead of the units (``moe.first_dense``, at most all)."""
+    return min(cfg.moe.first_dense, cfg.num_layers) if cfg.moe is not None else 0
+
+
+def lead_layout(cfg) -> list[tuple[str, bool]]:
+    """(kind, is_moe) of each leading dense layer."""
     kinds = cfg.layer_kinds()
-    entries = [(kinds[i], cfg.layer_is_moe(i)) for i in range(min(ul, cfg.num_layers))]
-    return cfg.num_layers // ul, cfg.num_layers % ul, entries
+    return [(kinds[i], False) for i in range(lead_len(cfg))]
+
+
+def unit_layout(cfg) -> tuple[int, int, list[tuple[str, bool]]]:
+    """(n_units, n_rest, unit_entries) where entries = (kind, is_moe), over
+    the layers after the leading ones."""
+    ul, lead = unit_len(cfg), lead_len(cfg)
+    kinds = cfg.layer_kinds()
+    n = cfg.num_layers - lead
+    entries = [(kinds[lead + i], cfg.layer_is_moe(lead + i)) for i in range(min(ul, n))]
+    return n // ul, n % ul, entries
+
+
+def moe_layers(cfg) -> int:
+    """The number of MoE layers (rows of ``expert_bias``)."""
+    return sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+
+
+def init_expert_bias(cfg, device):
+    """The dropless router's expert bias, zeros (MoE layers, experts) fp32,
+    or None for a config without it."""
+    if cfg.moe is None or cfg.moe.router != "sigmoid":
+        return None
+    return torch.zeros((moe_layers(cfg), cfg.moe.num_experts), dtype=torch.float32,
+                       device=device_lib.resolve(device))
 
 
 # ------------------------------------------------------------- weight casts
@@ -121,6 +157,9 @@ def cast_params(params, dtype):
 # ---------------------------------------------------------------------- init
 def _layer_init(generator, cfg, kind, is_moe, device, lead, dtype):
     p = {"norm1": L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, device, lead)}
+    if cfg.sandwich_norm:       # each branch's output normed too
+        p["post1"] = L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, device, lead)
+        p["post2"] = L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, device, lead)
     if kind in _ATTN_KINDS:
         p["mix"] = attn.attn_init(generator, cfg, device, lead, dtype)
     elif kind == RGLRU:
@@ -167,6 +206,10 @@ def init(generator, cfg, device="cuda", dtype=None):
         params["pos"] = L.truncated_normal(generator, (cfg.max_seq_len, cfg.d_model),
                                            1.0, dev, dtype)
     params["final_norm"] = L.norm_init(cfg.d_model, cfg.norm, cfg.use_bias, dev)
+    if lead_len(cfg):
+        params["lead"] = tuple(
+            _layer_init(generator, cfg, kind, is_moe, dev, (), dtype)
+            for kind, is_moe in lead_layout(cfg))
     if n_units:
         params["units"] = tuple(
             _layer_init(generator, cfg, kind, is_moe, dev, (n_units,), dtype)
@@ -203,10 +246,16 @@ def _mix_axes(cfg, kind):
     if kind in _ATTN_KINDS:
         o = _dense_axes(cfg, L.HEADS, (L.EMBED,))
         o["w"] = (L.HEADS, L.HEAD_DIM, L.EMBED)
-        return {"q": _dense_axes(cfg, L.EMBED, (L.HEADS, L.HEAD_DIM)),
-                "k": _dense_axes(cfg, L.EMBED, (L.KV_HEADS, L.HEAD_DIM)),
-                "v": _dense_axes(cfg, L.EMBED, (L.KV_HEADS, L.HEAD_DIM)),
-                "o": o}
+        a = {"q": _dense_axes(cfg, L.EMBED, (L.HEADS, L.HEAD_DIM)),
+             "k": _dense_axes(cfg, L.EMBED, (L.KV_HEADS, L.HEAD_DIM)),
+             "v": _dense_axes(cfg, L.EMBED, (L.KV_HEADS, L.HEAD_DIM)),
+             "o": o}
+        if cfg.attn_gate:
+            a["g"] = _dense_axes(cfg, L.EMBED, (L.HEADS, L.HEAD_DIM))
+        if cfg.qk_norm:
+            a["q_norm"] = {"scale": (L.HEAD_DIM,)}
+            a["k_norm"] = {"scale": (L.HEAD_DIM,)}
+        return a
     if kind == RGLRU:
         return {"gate": _dense_axes(cfg, L.EMBED, (L.RNN,), False),
                 "x": _dense_axes(cfg, L.EMBED, (L.RNN,), False),
@@ -226,6 +275,9 @@ def _mix_axes(cfg, kind):
 
 def _layer_axes(cfg, kind, is_moe):
     a = {"norm1": _norm_axes(cfg), "mix": _mix_axes(cfg, kind)}
+    if cfg.sandwich_norm:
+        a["post1"] = _norm_axes(cfg)
+        a["post2"] = _norm_axes(cfg)
     if kind in _XLSTM_KINDS:
         return a
     a["norm2"] = _norm_axes(cfg)
@@ -257,6 +309,9 @@ def param_axes(cfg):
     if cfg.encoder_only:
         axes["pos"] = (sh.SEQ, L.EMBED)
     axes["final_norm"] = _norm_axes(cfg)
+    if lead_len(cfg):
+        axes["lead"] = tuple(_layer_axes(cfg, kind, is_moe)
+                             for kind, is_moe in lead_layout(cfg))
     if n_units:
         axes["units"] = tuple(_stacked(_layer_axes(cfg, kind, is_moe))
                               for kind, is_moe in entries)
@@ -282,10 +337,13 @@ def cache_axes(cfg):
     """The logical axes of ``cache_init``'s tree, leaf by leaf (None where
     the cache holds None)."""
     n_units, n_rest, entries = unit_layout(cfg)
-    return {"units": tuple(_stacked(_entry_cache_axes(kind)) for kind, _ in entries)
-            if n_units else None,
-            "rest": tuple(_entry_cache_axes(kind) for kind, _ in entries[:n_rest])
-            if n_rest else None}
+    out = {"units": tuple(_stacked(_entry_cache_axes(kind)) for kind, _ in entries)
+           if n_units else None,
+           "rest": tuple(_entry_cache_axes(kind) for kind, _ in entries[:n_rest])
+           if n_rest else None}
+    if lead_len(cfg):
+        out["lead"] = tuple(_entry_cache_axes(kind) for kind, _ in lead_layout(cfg))
+    return out
 
 
 # --------------------------------------------------------------------- layers
@@ -309,18 +367,29 @@ def _mix_decode(p, cfg, kind, hn, position, cache_entry):
     return xlstm_lib.slstm_decode(p, cfg, hn, cache_entry)[0]
 
 
-def _layer(p, cfg, kind, is_moe, h, mix):
+def _layer(p, cfg, kind, is_moe, h, mix, bias=None):
     """One layer around its temporal mix ``mix(hn) -> y`` (the cache entry,
-    when there is one, filled in place). Returns (h, aux): the MoE FFN's
-    load-balancing loss, or None."""
-    h = h + mix(L.norm_apply(p["norm1"], h, cfg.norm))
+    when there is one, filled in place). Returns (h, aux, load): the MoE
+    FFN's load-balancing loss, or None; the dropless MoE FFN's expert
+    load (``moe.moe_dropless``), or None. ``bias``: the dropless layer's
+    expert bias. With ``cfg.sandwich_norm`` each branch's output is normed
+    (``post1``, ``post2``) before its residual add."""
+    def norm(key, x):
+        return L.norm_apply(p[key], x, cfg.norm, cfg.norm_eps)
+
+    y = mix(norm("norm1", h))
+    h = h + (norm("post1", y) if cfg.sandwich_norm else y)
     if kind in _XLSTM_KINDS:
-        return h, None
-    hn = L.norm_apply(p["norm2"], h, cfg.norm)
-    if is_moe:
+        return h, None, None
+    hn = norm("norm2", h)
+    aux = load = None
+    if not is_moe:
+        y = L.mlp_apply(p["ffn"], hn)
+    elif cfg.moe.router == "sigmoid":
+        y, load = moe_lib.moe_dropless(p["ffn"], cfg, hn, bias)
+    else:
         y, aux = moe_lib.moe_apply(p["ffn"], cfg, hn)
-        return h + y, aux
-    return h + L.mlp_apply(p["ffn"], hn), None
+    return h + (norm("post2", y) if cfg.sandwich_norm else y), aux, load
 
 
 # remat="dots": a product without batch dims is ``mm`` / ``addmm``, or a
@@ -371,40 +440,82 @@ def _add(total, aux):
     return aux if total is None else total if aux is None else total + aux
 
 
-def _stack_forward(params, cfg, h, positions, cache, decode_position=None):
-    """Run all layers; cache may be None. Returns (h, aux): aux the MoE
-    layers' load-balancing losses summed a unit at a time, as the JAX scan
-    carries it (None without MoE: an exact 0)."""
+def _stack_forward(params, cfg, h, positions, cache, decode_position=None,
+                   expert_bias=None):
+    """Run all layers; cache may be None. Returns (h, aux, loads): aux the
+    MoE layers' load-balancing losses summed a unit at a time, as the JAX
+    scan carries it (None without MoE: an exact 0); loads the dropless
+    layers' expert loads, one (num_experts + 1,) row a MoE layer in layer
+    order, stacked (None without them). ``expert_bias`` (MoE layers,
+    num_experts): row j routes the j-th MoE layer (None: zeros). The
+    leading dense layers run as one remat segment ahead of the units."""
     n_units, n_rest, entries = unit_layout(cfg)
+    lead = lead_layout(cfg)
+    ul = unit_len(cfg)
+    row = {}                              # global layer index -> MoE row
+    for i in range(cfg.num_layers):
+        if cfg.layer_is_moe(i):
+            row[i] = len(row)
 
-    def run(layer_params, layer_caches, h):
-        aux_sum = None
-        for i, (kind, is_moe) in enumerate(entries[:len(layer_params)]):
+    def one(h, p, kind, is_moe, ce, bias):
+        if decode_position is not None:
+            mix = lambda hn: _mix_decode(p["mix"], cfg, kind, hn, decode_position, ce)
+        else:
+            mix = lambda hn: _mix_apply(p["mix"], cfg, kind, hn, positions, ce)
+        return _layer(p, cfg, kind, is_moe, h, mix, bias)
+
+    def bound(p, kind, is_moe, ce, bias):
+        """``one`` with all but the residual bound (a layer's own closure:
+        its recompute under ``remat="layer"`` reads these, not the loop's
+        latest)."""
+        return lambda h: one(h, p, kind, is_moe, ce, bias)
+
+    training = decode_position is None and cache is None
+    per_layer = (training and cfg.remat == "layer" and torch.is_grad_enabled())
+
+    def run(layer_params, layer_caches, h, first, layout):
+        aux_sum, loads = None, []
+        for i, (kind, is_moe) in enumerate(layout[:len(layer_params)]):
             p, ce = layer_params[i], None if layer_caches is None else layer_caches[i]
-            if decode_position is not None:
-                mix = lambda hn: _mix_decode(p["mix"], cfg, kind, hn,
-                                             decode_position, ce)
+            bias = (expert_bias[row[first + i]]
+                    if is_moe and expert_bias is not None else None)
+            layer = bound(p, kind, is_moe, ce, bias)
+            if per_layer:
+                h, aux, load = checkpoint(layer, h, use_reentrant=False)
             else:
-                mix = lambda hn: _mix_apply(p["mix"], cfg, kind, hn, positions, ce)
-            h, aux = _layer(p, cfg, kind, is_moe, h, mix)
+                h, aux, load = layer(h)
             aux_sum = _add(aux_sum, aux)
-        return h, aux_sum
+            if load is not None:
+                loads.append(load)
+        return h, aux_sum, loads
 
-    aux_total = None
+    def segment(fn, h):
+        if training and cfg.remat != "layer":
+            return _remat(fn, cfg)(h)
+        return fn(h)
+
+    aux_total, all_loads = None, []
+    if lead:
+        h, aux, loads = segment(lambda h: run(
+            params["lead"], None if cache is None else cache["lead"], h, 0, lead), h)
+        aux_total = _add(aux_total, aux)
+        all_loads += loads
     if n_units:
         units = _unit_params(params["units"])
         caches = (None if cache is None
                   else _unit_params(cache["units"]))
         for u in range(n_units):
-            if decode_position is None and cache is None:
-                h, aux = _remat(lambda h, u=u: run(units[u], None, h), cfg)(h)
-            else:
-                h, aux = run(units[u], caches[u], h)
+            h, aux, loads = segment(lambda h, u=u: run(
+                units[u], None if caches is None else caches[u], h,
+                len(lead) + u * ul, entries), h)
             aux_total = _add(aux_total, aux)
+            all_loads += loads
     if n_rest:
-        h, aux = run(params["rest"], None if cache is None else cache["rest"], h)
+        h, aux, loads = run(params["rest"], None if cache is None else cache["rest"], h,
+                            len(lead) + n_units * ul, entries)
         aux_total = _add(aux_total, aux)
-    return h, aux_total
+        all_loads += loads
+    return h, aux_total, torch.stack(all_loads) if all_loads else None
 
 
 # -------------------------------------------------------------------- embedding
@@ -417,6 +528,8 @@ def _embed_inputs(params, cfg, batch, dtype=torch.bfloat16):
         tokens = batch["tokens"]
         B, S = tokens.shape
         h = L.embed_apply(params["embed"], tokens, dtype)
+        if cfg.embed_scale:             # muP: the table times sqrt(d_model)
+            h = h * math.sqrt(cfg.d_model)
         if cfg.frontend == "vision" and "patch_embeds" in batch:
             pe = batch["patch_embeds"].to(dtype)
             h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
@@ -432,15 +545,18 @@ def _unembed(params, cfg, h):
 
 
 # ------------------------------------------------------------------ entrypoints
-def train_loss(params, cfg, batch):
+def train_loss(params, cfg, batch, expert_bias=None):
     """Next-token (or masked-unit) cross entropy in bf16 activations.
     ``batch``: tokens (or, for the audio frontend, frame_embeds) and labels
     (B, S), optional loss_mask and patch_embeds. Returns (loss, metrics):
     loss is the cross entropy plus 0.01 times the MoE aux; metrics
-    ``loss`` (the cross entropy), ``accuracy`` (token top-1) and ``aux``."""
+    ``loss`` (the cross entropy), ``accuracy`` (token top-1) and ``aux``,
+    and for dropless MoE layers ``expert_load`` (MoE layers, num_experts +
+    1) int64 (``moe.moe_dropless``), routed by ``expert_bias``."""
     h, positions = _embed_inputs(params, cfg, batch)
-    h, aux = _stack_forward(params, cfg, h, positions, None)
-    h = L.norm_apply(params["final_norm"], h, cfg.norm)
+    h, aux, loads = _stack_forward(params, cfg, h, positions, None,
+                                   expert_bias=expert_bias)
+    h = L.norm_apply(params["final_norm"], h, cfg.norm, cfg.norm_eps)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     aux = zero if aux is None else aux
 
@@ -473,29 +589,36 @@ def train_loss(params, cfg, batch):
         tot, totacc, totw = tot + nll, totacc + acc, totw + ms.sum()
     totw = torch.clamp_min(totw, 1.0)
     loss = tot / totw + 0.01 * aux
-    return loss, {"loss": (tot / totw).detach(), "accuracy": totacc / totw,
-                  "aux": aux.detach()}
+    metrics = {"loss": (tot / totw).detach(), "accuracy": totacc / totw,
+               "aux": aux.detach()}
+    if loads is not None:
+        metrics["expert_load"] = loads
+    return loss, metrics
 
 
-def prefill(params, cfg, batch, cache, dtype=torch.bfloat16):
+def prefill(params, cfg, batch, cache, dtype=torch.bfloat16, expert_bias=None):
     """Process the prompt (or, encoder-only, the frames), fill the cache
     (None: no cache), return last-position logits (fp32).
     ``dtype`` is the activation/residual dtype (blocks compute in fp32
     internally and cast back to it; fp32 here keeps the whole stack fp32 —
     the numerics oracle for prefill-vs-decode consistency checks)."""
     h, positions = _embed_inputs(params, cfg, batch, dtype=dtype)
-    h, _ = _stack_forward(params, cfg, h, positions, cache)
-    h_last = L.norm_apply(params["final_norm"], h[:, -1:], cfg.norm)
+    h, _, _ = _stack_forward(params, cfg, h, positions, cache, expert_bias=expert_bias)
+    h_last = L.norm_apply(params["final_norm"], h[:, -1:], cfg.norm, cfg.norm_eps)
     return _unembed(params, cfg, h_last)[:, 0], cache
 
 
-def decode_step(params, cfg, tokens, cache, position: int, dtype=torch.bfloat16):
+def decode_step(params, cfg, tokens, cache, position: int, dtype=torch.bfloat16,
+                expert_bias=None):
     """One decode step. tokens (B,1); position an int, the same for every row."""
     if cfg.frontend == "audio":
         raise ValueError("encoder-only arch has no decode step")
     h = L.embed_apply(params["embed"], tokens, dtype)
-    h, _ = _stack_forward(params, cfg, h, None, cache, decode_position=position)
-    h = L.norm_apply(params["final_norm"], h, cfg.norm)
+    if cfg.embed_scale:
+        h = h * math.sqrt(cfg.d_model)
+    h, _, _ = _stack_forward(params, cfg, h, None, cache, decode_position=position,
+                             expert_bias=expert_bias)
+    h = L.norm_apply(params["final_norm"], h, cfg.norm, cfg.norm_eps)
     return _unembed(params, cfg, h)[:, 0], cache
 
 
@@ -524,7 +647,11 @@ def cache_init(cfg, batch, max_seq, device="cuda", dtype=torch.bfloat16):
                   for kind, _ in entries) if n_units else None
     rest = tuple(_entry_cache(cfg, kind, batch, max_seq, dev, dtype, ())
                  for kind, _ in entries[:n_rest]) if n_rest else None
-    return {"units": units, "rest": rest}
+    out = {"units": units, "rest": rest}
+    if lead_len(cfg):
+        out["lead"] = tuple(_entry_cache(cfg, kind, batch, max_seq, dev, dtype, ())
+                            for kind, _ in lead_layout(cfg))
+    return out
 
 
 def param_count(params) -> int:

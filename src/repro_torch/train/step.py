@@ -26,6 +26,8 @@ from repro_torch import sharding as sh
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core.spans import span
+from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer
 from repro_torch.optim import optimizers as opt_lib
 from repro_torch.optim import schedules
@@ -41,7 +43,7 @@ def make_optimizer(cfg: ArchConfig, total_steps: int = 100_000):
     return opt_lib.make_optimizer(cfg.optimizer, make_lr_fn(cfg, total_steps))
 
 
-def loss_and_grads(params, cfg, batch):
+def loss_and_grads(params, cfg, batch, expert_bias=None):
     """(loss, metrics, grads) of ``transformer.train_loss`` at ``params``
     (which it leaves as they are); the grads are fp32, shaped as the
     params, and zero for a leaf the loss does not use (the token table of
@@ -49,7 +51,7 @@ def loss_and_grads(params, cfg, batch):
     leaves = [x.detach().requires_grad_() for x in tree.leaves(params)]
     with span("dfl.train.forward"):
         loss, metrics = transformer.train_loss(tree.unflatten(params, leaves), cfg,
-                                               batch)
+                                               batch, expert_bias)
     with span("dfl.train.backward"):
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
@@ -59,13 +61,20 @@ def loss_and_grads(params, cfg, batch):
 
 def make_train_step(cfg: ArchConfig, opt: Optional[opt_lib.Optimizer] = None,
                     grad_clip: float = 1.0):
+    """``train_step(state, batch) -> (state, metrics)``. A config with the
+    dropless sigmoid router keeps its expert bias in ``state[
+    "expert_bias"]`` (``init_train_state``): it routes the step's forward
+    and, after the optimizer, moves toward an even load
+    (``moe.update_expert_bias``: no gradient, clipping, decay or AdamW),
+    and the step's expert loads go to ``moe.ROUTES``, all on the device."""
     opt = opt or make_optimizer(cfg)
     accum = max(1, cfg.accum_steps)
 
     def train_step(state, batch):
+        bias = state.get("expert_bias")
         with span("dfl.train.step"):
             if accum == 1:
-                _, metrics, grads = loss_and_grads(state["params"], cfg, batch)
+                _, metrics, grads = loss_and_grads(state["params"], cfg, batch, bias)
             else:
                 # microbatch over the batch dim: live activations shrink accum x
                 n = torch.tensor(float(accum))
@@ -75,7 +84,7 @@ def make_train_step(cfg: ArchConfig, opt: Optional[opt_lib.Optimizer] = None,
                 for a in range(accum):
                     mb = tree.map(lambda x, a=a: x.reshape(
                         accum, x.shape[0] // accum, *x.shape[1:])[a], batch)
-                    _, m, g = loss_and_grads(state["params"], cfg, mb)
+                    _, m, g = loss_and_grads(state["params"], cfg, mb, bias)
                     grads = tree.map(lambda acc, x: acc.add_(x.to(torch.float32)), grads, g)
                     m = {k: v / n.to(v.device) for k, v in m.items()}
                     metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
@@ -88,8 +97,13 @@ def make_train_step(cfg: ArchConfig, opt: Optional[opt_lib.Optimizer] = None,
                 del grads
                 params = opt_lib.apply_updates(state["params"], updates)
             metrics = dict(metrics, grad_norm=gnorm)
-            return ({"params": params, "opt": opt_state, "step": state["step"] + 1},
-                    metrics)
+            new = dict(state, params=params, opt=opt_state, step=state["step"] + 1)
+            load = metrics.pop("expert_load", None)
+            if bias is not None and load is not None:
+                with span("dfl.train.expert_bias"):
+                    moe_lib.update_expert_bias(bias, load, cfg.moe.bias_rate)
+                    moe_lib.ROUTES.add(load, cfg.moe.held_range)
+            return new, metrics
 
     return train_step
 
@@ -116,8 +130,12 @@ def init_train_state(cfg: ArchConfig, generator, opt: Optional[opt_lib.Optimizer
     dev = device_lib.resolve(device)
     opt = opt or make_optimizer(cfg)
     params = transformer.init(generator, cfg, dev)
-    return {"params": params, "opt": opt.init(params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    bias = transformer.init_expert_bias(cfg, dev)
+    if bias is not None:
+        state["expert_bias"] = bias
+    return state
 
 
 # ------------------------------------------------------------ abstract inputs
@@ -200,6 +218,9 @@ def abstract_train_state(cfg: ArchConfig):
              "step": torch.zeros((), dtype=torch.int32, device=META)}
     axes = {"params": p_axes,
             "opt": opt_state_axes(cfg.optimizer, p_axes, params), "step": ()}
+    bias = transformer.init_expert_bias(cfg, META)
+    if bias is not None:
+        state["expert_bias"], axes["expert_bias"] = bias, (None, L.EXPERTS)
     return state, axes
 
 

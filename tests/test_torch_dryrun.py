@@ -25,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.launch import dryrun                      # noqa: E402
+from repro_torch.configs import PORT_ONLY_IDS                # noqa: E402
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
 LAX = ["--engine", "lax", "--scenario", "lenet", "--attack", "signflip",
@@ -127,6 +128,8 @@ def test_parser_has_every_jax_option_with_its_default(subprocess_runner,
     assert all(opt in j["help"] for opts in want for opt in opts)
     assert set(want) <= set(got), set(want) - set(got)
     for opts, (default, choices) in want.items():
+        if opts == ("--arch",):       # the port's own archs after the JAX zoo's
+            choices = choices + list(PORT_ONLY_IDS)
         assert got[opts] == (default, choices), (opts, got[opts], default, choices)
     assert set(got) - set(want) == {("--device",)}
     assert got[("--device",)][0] == "cuda"

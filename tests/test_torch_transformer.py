@@ -31,7 +31,7 @@ from repro.models import transformer as j_tf                   # noqa: E402
 
 from repro_torch import convert, serve, tree                   # noqa: E402
 from repro_torch.configs import ArchConfig, get_config, smoke_config  # noqa: E402
-from repro_torch.configs.base import RGLRU                     # noqa: E402
+from repro_torch.configs.base import RGLRU, jax_fields         # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches       # noqa: E402
 from repro_torch.models import transformer as p_tf             # noqa: E402
 
@@ -89,7 +89,7 @@ def _cache_leaves(cache):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_and_decode_match_jax(arch, P, dtype):
     jcfg, pcfg = j_smoke_config(arch), smoke_config(arch)
-    assert dataclasses.asdict(pcfg) == dataclasses.asdict(jcfg)   # copied configs
+    assert jax_fields(pcfg) == dataclasses.asdict(jcfg)   # copied configs
     np_params = _params(arch)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     prompts = np.random.RandomState(P).randint(0, jcfg.vocab_size, (B, P))
@@ -245,4 +245,4 @@ def test_serve_entry_point(capsys, monkeypatch):
 @pytest.mark.parametrize("arch", ["llama3-8b", "gemma3-12b"])
 def test_configs_are_copies_of_the_jax_ones(arch):
     from repro.configs import get_config as j_get_config
-    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_get_config(arch))
+    assert jax_fields(get_config(arch)) == dataclasses.asdict(j_get_config(arch))

@@ -75,6 +75,7 @@ from repro.train import step as j_step                          # noqa: E402
 
 from repro_torch import convert, serve, tree                    # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, smoke_config  # noqa: E402
+from repro_torch.configs.base import jax_fields  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches       # noqa: E402
 from repro_torch.models import layers as p_L                    # noqa: E402
 from repro_torch.models import moe as p_moe                     # noqa: E402
@@ -235,7 +236,7 @@ def _route_flips(rec, dtype, position):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_and_decode_match_jax(arch, layers, dtype, monkeypatch):
     jcfg, pcfg = _cfgs(arch, layers)
-    assert dataclasses.asdict(pcfg) == dataclasses.asdict(jcfg)   # copied configs
+    assert jax_fields(pcfg) == dataclasses.asdict(jcfg)   # copied configs
     np_params = _params(arch, layers)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     bound = _bf16_bound(jcfg)
@@ -361,7 +362,7 @@ def _j_fp32_loss(params, cfg, batch):
 
 def _p_fp32_loss(params, cfg, batch):
     h, positions = p_tf._embed_inputs(params, cfg, batch, dtype=torch.float32)
-    h, aux = p_tf._stack_forward(params, cfg, h, positions, None)
+    h, aux, _ = p_tf._stack_forward(params, cfg, h, positions, None)
     logits = p_tf._unembed(params, cfg, p_L.norm_apply(params["final_norm"], h, cfg.norm))
     nll, _ = p_L.xent_terms(logits, batch["labels"])
     return nll.mean() + (0.0 if aux is None else 0.01 * aux)
@@ -433,7 +434,7 @@ EXPECTED_SCALE = {
 def test_full_config_param_counts(arch):
     """Shapes of the full configs on the meta device: the JAX test's ranges,
     and leaf for leaf the JAX abstract init's shapes."""
-    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_get_config(arch))
+    assert jax_fields(get_config(arch)) == dataclasses.asdict(j_get_config(arch))
     params = p_tf.init(torch.Generator(), get_config(arch), "meta")
     n = p_tf.param_count(params)
     assert 0.4 * EXPECTED_SCALE[arch] < n < 2.6 * EXPECTED_SCALE[arch], (arch, n)
