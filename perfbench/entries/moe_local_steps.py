@@ -10,10 +10,12 @@ program's training state (AdamW state, step counter and the expert bias,
 zeros) and drives it through two of the window's own calls, H = 2 steps
 each; the first three steps are the ones the reference follows. Besides
 the loss, the first gradients' norms and the changes, the watch keeps
-each MoE layer's routing choices of those three steps (``moe.ROUTE_TAPS``,
-the first forward's, on the card) and the expert bias after the third.
-After each unit the program's route counters (``moe.ROUTES``: held and
-other slots, dropped pairs) are read once, off the step's path.
+each MoE layer's routing choices of those three steps (the first
+forward's, on the card, from a wrapper the entry puts round the program's
+``moe.sigmoid_route``) and the expert bias after the third. Every step's
+``expert_load`` (a metric of the program's train step) is added to
+counters on the card (``RouteCounters``: held and other slots, dropped
+pairs, the load ratio), read once a unit, off the step's path.
 
 The check: the reference (``reference.afmoe``, fp32, TF32 off) draws the
 same initial params and takes the same three steps, routed by the
@@ -90,6 +92,48 @@ class ChoiceTap:
         if self.on and self.steps and len(self.steps[-1]) < self.layers:
             self.steps[-1].append(choices.to(torch.uint8))
 
+    def wrap(self, route):
+        """``route`` (``moe.sigmoid_route``) passing its choices here."""
+        def tapped(*args, **kwargs):
+            w, choices = route(*args, **kwargs)
+            self(choices)
+            return w, choices
+        return tapped
+
+
+class RouteCounters:
+    """Sums over the steps' dropless MoE layers, kept on the card: ``add``
+    takes a step's ``expert_load`` (MoE layers, num_experts + 1) and
+    launches a few kernels, never waiting on the host; ``read`` copies the
+    sums out once (one host sync) and starts again. Per (step, layer): the
+    (token, choice) pairs routed to held experts, routed elsewhere, and
+    dropped (|pairs routed to held experts - rows the grouped products
+    computed|: a pair lost, or one computed that no token routed there),
+    and the largest held expert's load over the held experts' mean."""
+
+    FIELDS = ("held_slots", "other_slots", "dropped", "layer_steps", "load_ratio_sum")
+
+    def __init__(self, held):
+        self.held, self.sums = held, None
+
+    def add(self, load):
+        lo, hi = self.held
+        n = load.to(torch.float64)
+        mine = n[:, lo:hi]
+        held_sum = mine.sum()
+        ratio = mine.amax(-1) / mine.mean(-1).clamp_min(1e-30)
+        v = torch.stack([held_sum, n[:, :-1].sum() - held_sum,
+                         (mine.sum(-1) - n[:, -1]).abs().sum(),
+                         torch.full((), n.shape[0], dtype=torch.float64, device=n.device),
+                         ratio.sum()])
+        self.sums = v if self.sums is None else self.sums.add_(v)
+
+    def read(self) -> dict:
+        out = dict.fromkeys(self.FIELDS, 0.0) if self.sums is None else \
+            dict(zip(self.FIELDS, self.sums.tolist()))
+        self.sums = None
+        return out
+
 
 class MoeLocalStepsRun:
     def __init__(self, bench):
@@ -115,8 +159,10 @@ class MoeLocalStepsRun:
         self.paths = [p for p, _ in glm_weights.leaf_paths(self.meta)]
         self.n_moe = transformer.moe_layers(cfg)
         self.tap = ChoiceTap(self.n_moe)
+        self.routes = RouteCounters(cfg.moe.held_range)
         self.dropped = 0.0           # over set-up's and the window's steps
-        moe_lib.ROUTE_TAPS.append(self.tap)
+        self.route = moe_lib.sigmoid_route             # the program's own
+        moe_lib.sigmoid_route = self.tap.wrap(self.route)
         self.opt = step_lib.make_optimizer(cfg)
         self.step = StepWatch(self._stepped(step_lib.make_train_step(cfg, self.opt)),
                               self._read)
@@ -131,7 +177,9 @@ class MoeLocalStepsRun:
     def _stepped(self, fn):
         def step(state, batch):
             self.tap.new_step()
-            return fn(state, batch)
+            state, metrics = fn(state, batch)
+            self.routes.add(metrics["expert_load"])
+            return state, metrics
         return step
 
     def fresh_state(self):
@@ -151,7 +199,6 @@ class MoeLocalStepsRun:
             self.unit()
         self.step.on = self.tap.on = False
         self.tap.steps = self.tap.steps[:FIRST_STEPS]
-        self.moe_lib.ROUTES.read()                  # the window's counts start at 0
         if self.step.k < FIRST_STEPS + 1:
             raise RuntimeError(f"set-up made {self.step.k} steps, not {SETUP_CALLS * self.H}")
 
@@ -196,19 +243,13 @@ class MoeLocalStepsRun:
     def unit(self):
         batches = self._batches(self.H)
         self.state, _ = self.local(self.state, batches)
-        routes = self.moe_lib.ROUTES.read()        # one host read a unit
-        self.dropped += routes.get("dropped", 0.0)
-        return {"units": 1, "steps": self.H, "tokens": self.H * self.B * self.S,
-                "held_slots": routes.get("held_slots", 0.0),
-                "other_slots": routes.get("other_slots", 0.0),
-                "dropped": routes.get("dropped", 0.0),
-                "layer_steps": routes.get("layer_steps", 0.0),
-                "load_ratio_sum": routes.get("load_ratio_sum", 0.0)}
+        routes = self.routes.read()                # one host read a unit
+        self.dropped += routes["dropped"]
+        return {"units": 1, "steps": self.H, "tokens": self.H * self.B * self.S, **routes}
 
     def release(self):
         self.state = self.local = self.step = None
-        if self.tap in self.moe_lib.ROUTE_TAPS:
-            self.moe_lib.ROUTE_TAPS.remove(self.tap)
+        self.moe_lib.sigmoid_route = self.route          # the program's own again
 
     # ---------------------------------------------------------------- check
     def reference(self, operands=None):

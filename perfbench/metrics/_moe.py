@@ -16,18 +16,6 @@ def moe_layers(arch) -> int:
     return arch["num_layers"] - arch["moe"]["first_dense"]
 
 
-def recomputed_moe_share(arch) -> float:
-    """The share of MoE layers whose forward runs again in the backward:
-    all under remat "layer"; under "full" the program's whole periods after
-    the leading dense layers (its stacked units), the trailing part period
-    running once."""
-    if arch["remat"] == "layer":
-        return 1.0
-    n = moe_layers(arch)
-    period = len(arch["block_pattern"])
-    return (n // period) * period / n
-
-
 def dense_params(arch) -> int:
     """Params that multiply, a token through all layers, but the routed
     experts: q, k, v, o and the gate of each attention; the dense layers'

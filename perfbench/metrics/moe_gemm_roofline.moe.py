@@ -1,14 +1,14 @@
 """The dropless expert layer's grouped products (``models.moe.grouped_mm``,
 ``torch._grouped_mm`` on the card) against their operations bound: each
 held slot's expert forward (gate, up, down: 6 d ff FLOPs, ``_moe``) once in
-the forward, again in the remat recompute of the stacked units' layers
-and twice in the backward (the input's and the weights' gradients), the
+the forward, again in the remat recompute (every layer's, but under remat
+"none") and twice in the backward (the input's and the weights' gradients), the
 slots from the program's route counter, over 989 TFLOP/s, divided by the
 device time of the grouped-GEMM kernels by name in the trace
 (``KERNELS``, read from a traced step on an H100). None where no such
 kernel ran."""
 from perfbench import peaks
-from perfbench.metrics._moe import recomputed_moe_share, slot_fwd_flops
+from perfbench.metrics._moe import slot_fwd_flops
 from perfbench.trace import kernel_time
 
 KERNELS = ("GroupProblemShape", "prepare_grouped_gemm")
@@ -21,5 +21,6 @@ def read(ctx):
     if sec <= 0:
         return None
     arch = ctx.config["arch"]
-    flops = ctx.counts["held_slots"] * slot_fwd_flops(arch) * (3 + recomputed_moe_share(arch))
+    passes = 3 if arch["remat"] == "none" else 4
+    flops = ctx.counts["held_slots"] * slot_fwd_flops(arch) * passes
     return 100.0 * flops / peaks.BF16_FLOPS / sec

@@ -112,7 +112,7 @@ class ArchConfig:
     # --- distribution hints -------------------------------------------------
     fsdp: bool = False               # additionally shard weights over the data axis
     optimizer: str = "adamw"         # adamw | adafactor | sgdm
-    remat: str = "full"              # full | dots | none | layer (port only)
+    remat: str = "full"              # full | dots | none
     # Query-block size for blocked (flash-style) attention at the jnp level.
     attn_block_q: int = 512
     attn_block_kv: int = 1024

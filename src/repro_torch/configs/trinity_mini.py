@@ -11,9 +11,7 @@ bias (load_balance_coeff 1e-3), RMSNorm eps 1e-5, rope_theta 1e4, vocab
 200192, untied, mup_enabled. From the family's description (not keys of the
 config): gated attention, QK-norm, RoPE on the sliding layers only (no
 positional encoding on the global ones), sandwich norms and the sqrt(d)
-embedding scale that muP gives. remat "layer": each layer checkpointed
-alone ("full" recomputes a 4-layer unit at once, which does not fit one
-card at the benchmark's B 4 x S 8192). Not in the JAX package's zoo: a
+embedding scale that muP gives. Not in the JAX package's zoo: a
 port-only arch (``configs.PORT_ONLY_IDS``).
 """
 from repro_torch.configs.base import ATTN, LOCAL_ATTN, ArchConfig, MoEConfig
@@ -43,6 +41,5 @@ CONFIG = ArchConfig(
     embed_scale=True,
     rope_kinds=(LOCAL_ATTN,),
     optimizer="adamw",
-    remat="layer",
     source="hf:arcee-ai/Trinity-Mini (afmoe); family description for the assumed parts",
 )

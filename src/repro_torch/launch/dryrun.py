@@ -650,7 +650,7 @@ def collective_model(cfg, shape, mesh, rules, *, dfl=None, receipts=0):
     decode = shape.kind == "decode" and dfl is None
     tokens = rows * (1 if decode else seq)
     fwd = receipts if dfl is not None else 1
-    recompute = train and cfg.remat in ("full", "layer")
+    recompute = train and cfg.remat == "full"
     passes = fwd + (2 if recompute else 1 if train else 0)
     if model > 1:
         rs = _row_split_products(cfg, mesh, rules)

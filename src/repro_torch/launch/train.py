@@ -119,7 +119,8 @@ def run_plain(args, cfg, dev):
         t0 = time.perf_counter()
         state, metrics = ts(state, _batch(model_batch(cfg, pipe.batch_at(step), step),
                                           dev))
-        history.append(dict(step=step, **{k: float(v) for k, v in metrics.items()},
+        history.append(dict(step=step, **{k: float(v) for k, v in metrics.items()
+                                          if v.numel() == 1},   # not expert_load
                             seconds=time.perf_counter() - t0))
         if step % 5 == 0 or step == args.steps - 1:
             print(f"[train] step {step} loss {history[-1]['loss']:.4f} "

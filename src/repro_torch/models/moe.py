@@ -37,7 +37,7 @@ buffer is sized to the upper bound of held pairs (tokens x top_k), the
 group offsets stay on the device, and the rows past the last offset are
 kept out of the combine and out of the tokens' gradients (the grouped
 product leaves them undefined). It returns each expert's load, which the
-train step turns into the bias update and the route counters.
+train step turns into the bias update and reports in its metrics.
 """
 from __future__ import annotations
 
@@ -153,55 +153,7 @@ def moe_apply(p, cfg, x):
     return y, aux
 
 
-
 # ------------------------------------------------------------ dropless path
-# callables given each dropless layer's choices (N, top_k) as it routes
-# (forward and remat recompute alike), on the device: a check's taps
-ROUTE_TAPS: list = []
-
-
-class RouteCounters:
-    """Sums over the train steps' dropless MoE layers, kept on the device
-    (``add`` launches a few kernels and never waits on the host); ``read``
-    copies them out once (one host sync) and starts again. Per (step,
-    layer): the (token, choice) pairs routed to held experts, routed
-    elsewhere, and dropped (|pairs routed to held experts - rows the
-    grouped products computed|: a pair lost, or one computed that no token
-    routed there; 0 by construction), and the largest held expert's load
-    over the held experts' mean (summed over the layers and steps)."""
-
-    FIELDS = ("held_slots", "other_slots", "dropped", "layer_steps", "load_ratio_sum")
-
-    def __init__(self):
-        self.sums = None
-
-    def add(self, load, held):
-        """``load`` (layers, num_experts + 1) as the train loss reports it;
-        a meta trace's (the cell report's) counts nothing."""
-        if load.is_meta:
-            return
-        lo, hi = held
-        n = load.to(torch.float64)
-        mine = n[:, lo:hi]
-        held_sum = mine.sum()
-        ratio = mine.amax(-1) / mine.mean(-1).clamp_min(1e-30)
-        v = torch.stack([held_sum, n[:, :-1].sum() - held_sum,
-                         (mine.sum(-1) - n[:, -1]).abs().sum(),
-                         torch.full((), n.shape[0], dtype=torch.float64, device=n.device),
-                         ratio.sum()])
-        self.sums = v if self.sums is None else self.sums.add_(v)
-
-    def read(self) -> dict:
-        if self.sums is None:
-            return {}
-        out = dict(zip(self.FIELDS, self.sums.tolist()))
-        self.sums = None
-        return out
-
-
-ROUTES = RouteCounters()
-
-
 def update_expert_bias(bias, load, rate):
     """The aux-loss-free balancing step, in place on ``bias`` (layers,
     experts): with n_e the pairs routed to expert e over this device's
@@ -304,8 +256,6 @@ def moe_dropless(p, cfg, x, bias=None):
     dev = x.device
     with span("dfl.moe.route"):
         w, choices = sigmoid_route(p, m, x2, bias)
-        for tap in ROUTE_TAPS:
-            tap(choices)
         flat = choices.reshape(P)
         ones = torch.ones(P, dtype=torch.int64, device=dev)
         load = torch.zeros(E + 1, dtype=torch.int64, device=dev).scatter_add_(0, flat, ones)

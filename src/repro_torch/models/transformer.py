@@ -33,20 +33,22 @@ modality frontend stubs: ``frontend="audio"`` takes ``frame_embeds``
 in place: ``prefill`` and ``decode_step`` return the cache they were
 given.
 
-Rematerialization (``cfg.remat``, the JAX package's ``jax.checkpoint`` of
-each unit): under autograd, ``"full"`` runs each unit through
+Rematerialization (``cfg.remat``; the JAX package's ``jax.checkpoint``
+of each unit): under autograd, ``"full"`` runs each layer through
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so only the
-unit-boundary residual is kept and the unit's forward, flash kernel
+layer-boundary residual is kept and the layer's forward, flash kernel
 included, runs again in the backward; ``"dots"`` (JAX's
-``checkpoint_dots_with_no_batch_dims``) checkpoints each unit the same way
+``checkpoint_dots_with_no_batch_dims``) checkpoints each layer the same way
 but saves the outputs of its matrix products without batch dims, the
 dense projections (``aten.mm`` / ``aten.addmm``), and recomputes the rest:
 attention's score and P.V products, the MoE expert and xLSTM einsums
 (batched ``bmm``) and the flash kernel, which is not a product;
-``"none"`` keeps every activation; ``"layer"`` (the port's own, for
-configs whose unit is too large to recompute at once: Trinity) checkpoints
-each layer on its own, the leading and trailing ones too, so the backward
-holds one layer's activations at a time for the same FLOPs as ``"full"``.
+``"none"`` keeps every activation. A layer, where JAX takes a unit: the
+same recompute inside the units (one layer a unit, as most archs have, is
+the same boundary), and the backward holds one layer's activations at a
+time; the leading and trailing layers, which JAX keeps whole, are
+checkpointed too (Trinity's period of four MoE-heavy layers and its two
+trailing ones do not fit the card otherwise).
 Each loss chunk's unembedding and cross
 entropy is checkpointed too (whatever the policy), so the (B, LOSS_CHUNK,
 vocab) fp32 logits of only one chunk are alive at a time.
@@ -447,8 +449,8 @@ def _stack_forward(params, cfg, h, positions, cache, decode_position=None,
     scan carries it (None without MoE: an exact 0); loads the dropless
     layers' expert loads, one (num_experts + 1,) row a MoE layer in layer
     order, stacked (None without them). ``expert_bias`` (MoE layers,
-    num_experts): row j routes the j-th MoE layer (None: zeros). The
-    leading dense layers run as one remat segment ahead of the units."""
+    num_experts): row j routes the j-th MoE layer (None: zeros). Under
+    autograd each layer is its own remat checkpoint (``_remat``)."""
     n_units, n_rest, entries = unit_layout(cfg)
     lead = lead_layout(cfg)
     ul = unit_len(cfg)
@@ -466,12 +468,10 @@ def _stack_forward(params, cfg, h, positions, cache, decode_position=None,
 
     def bound(p, kind, is_moe, ce, bias):
         """``one`` with all but the residual bound (a layer's own closure:
-        its recompute under ``remat="layer"`` reads these, not the loop's
-        latest)."""
+        its remat recompute reads these, not the loop's latest)."""
         return lambda h: one(h, p, kind, is_moe, ce, bias)
 
     training = decode_position is None and cache is None
-    per_layer = (training and cfg.remat == "layer" and torch.is_grad_enabled())
 
     def run(layer_params, layer_caches, h, first, layout):
         aux_sum, loads = None, []
@@ -480,24 +480,16 @@ def _stack_forward(params, cfg, h, positions, cache, decode_position=None,
             bias = (expert_bias[row[first + i]]
                     if is_moe and expert_bias is not None else None)
             layer = bound(p, kind, is_moe, ce, bias)
-            if per_layer:
-                h, aux, load = checkpoint(layer, h, use_reentrant=False)
-            else:
-                h, aux, load = layer(h)
+            h, aux, load = (_remat(layer, cfg) if training else layer)(h)
             aux_sum = _add(aux_sum, aux)
             if load is not None:
                 loads.append(load)
         return h, aux_sum, loads
 
-    def segment(fn, h):
-        if training and cfg.remat != "layer":
-            return _remat(fn, cfg)(h)
-        return fn(h)
-
     aux_total, all_loads = None, []
     if lead:
-        h, aux, loads = segment(lambda h: run(
-            params["lead"], None if cache is None else cache["lead"], h, 0, lead), h)
+        h, aux, loads = run(params["lead"], None if cache is None else cache["lead"], h,
+                            0, lead)
         aux_total = _add(aux_total, aux)
         all_loads += loads
     if n_units:
@@ -505,9 +497,8 @@ def _stack_forward(params, cfg, h, positions, cache, decode_position=None,
         caches = (None if cache is None
                   else _unit_params(cache["units"]))
         for u in range(n_units):
-            h, aux, loads = segment(lambda h, u=u: run(
-                units[u], None if caches is None else caches[u], h,
-                len(lead) + u * ul, entries), h)
+            h, aux, loads = run(units[u], None if caches is None else caches[u], h,
+                                len(lead) + u * ul, entries)
             aux_total = _add(aux_total, aux)
             all_loads += loads
     if n_rest:

@@ -65,8 +65,8 @@ def make_train_step(cfg: ArchConfig, opt: Optional[opt_lib.Optimizer] = None,
     dropless sigmoid router keeps its expert bias in ``state[
     "expert_bias"]`` (``init_train_state``): it routes the step's forward
     and, after the optimizer, moves toward an even load
-    (``moe.update_expert_bias``: no gradient, clipping, decay or AdamW),
-    and the step's expert loads go to ``moe.ROUTES``, all on the device."""
+    (``moe.update_expert_bias``: no gradient, clipping, decay or AdamW), on
+    the device; the metrics keep the step's ``expert_load``."""
     opt = opt or make_optimizer(cfg)
     accum = max(1, cfg.accum_steps)
 
@@ -98,11 +98,10 @@ def make_train_step(cfg: ArchConfig, opt: Optional[opt_lib.Optimizer] = None,
                 params = opt_lib.apply_updates(state["params"], updates)
             metrics = dict(metrics, grad_norm=gnorm)
             new = dict(state, params=params, opt=opt_state, step=state["step"] + 1)
-            load = metrics.pop("expert_load", None)
+            load = metrics.get("expert_load")
             if bias is not None and load is not None:
                 with span("dfl.train.expert_bias"):
                     moe_lib.update_expert_bias(bias, load, cfg.moe.bias_rate)
-                    moe_lib.ROUTES.add(load, cfg.moe.held_range)
             return new, metrics
 
     return train_step

@@ -24,19 +24,6 @@ def subprocess_runner():
     return run_python
 
 
-def pytest_configure(config):
-    """Under pytest-xdist, each worker's torch takes its share of the cores
-    (``torch.set_num_threads``): by default every worker starts a thread a
-    core, and six workers on eight cores then spend their time switching."""
-    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
-    if workers > 1:
-        try:
-            import torch
-        except ImportError:
-            return
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
-
-
 def pytest_addoption(parser):
     parser.addoption(
         "--jax-debug-nans", action="store_true", default=False,

@@ -17,6 +17,7 @@ import sys
 from pathlib import Path
 
 import torch
+import _torch_threads  # noqa: E402,F401  (torch's threads a worker)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -53,21 +54,25 @@ def setup(cfg, seed=SEED):
 
 
 class Taps:
-    """The program's routing choices, layer by layer, the first forward's."""
+    """The program's routing choices, layer by layer, the first forward's:
+    ``moe.sigmoid_route`` wrapped while the block runs."""
 
     def __init__(self, layers):
         self.layers, self.got = layers, []
 
     def __enter__(self):
-        moe_lib.ROUTE_TAPS.append(self)
+        self.route = moe_lib.sigmoid_route
+
+        def tapped(*args, **kwargs):
+            w, choices = self.route(*args, **kwargs)
+            if len(self.got) < self.layers:
+                self.got.append(choices.clone())
+            return w, choices
+        moe_lib.sigmoid_route = tapped
         return self
 
     def __exit__(self, *exc):
-        moe_lib.ROUTE_TAPS.remove(self)
-
-    def __call__(self, choices):
-        if len(self.got) < self.layers:
-            self.got.append(choices.clone())
+        moe_lib.sigmoid_route = self.route
 
 
 def _bias(cfg, seed=5):

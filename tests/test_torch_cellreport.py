@@ -37,6 +37,7 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (torch's threads a worker)
 
 from repro_torch import kernels, tree                     # noqa: E402
 from repro_torch.configs import SHAPES, get_config, smoke_config  # noqa: E402

@@ -23,6 +23,7 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (torch's threads a worker)
 
 from repro_torch.launch import dryrun                      # noqa: E402
 from repro_torch.configs import PORT_ONLY_IDS                # noqa: E402

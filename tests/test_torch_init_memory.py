@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (torch's threads a worker)
 
 from repro_torch import serve, tree                             # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, smoke_config  # noqa: E402

@@ -13,6 +13,7 @@ import itertools
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (torch's threads a worker)
 jax = pytest.importorskip("jax")
 
 from repro import sharding as jsh                           # noqa: E402

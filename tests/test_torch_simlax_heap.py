@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (torch's threads a worker)
 
 from repro_torch.chain import attacks as p_attacks               # noqa: E402
 from repro_torch.chain import scenarios as p_scenarios           # noqa: E402

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (torch's threads a worker)
 pytest.importorskip("jax")
 
 from repro.chain import simlax as j_simlax                       # noqa: E402

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401  (torch's threads a worker)
 
 from repro_torch import convert, tree                            # noqa: E402
 from repro_torch.configs import smoke_config                     # noqa: E402
