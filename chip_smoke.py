@@ -228,6 +228,17 @@ prints its last line):
    the plain reference (``perfbench/reference/afmoe.py``, fp32) on the
    card, every check within its limit, no pair dropped, its tokens/s and
    peak memory;
+20. (after 19) the train step's clip and AdamW kernels (``csrc/adamw.cu``)
+   at chatglm3-6b's benchmark state (17 layers, 19 fp32 leaves, 4.0 B
+   params: g, m, v and p, 64 GB): ``adamw_step`` bitwise its plain version
+   (m, v, p; g left as it was) on the largest leaf, (17, 13696, 4096),
+   with the clip engaged, and ``grad_sumsq``'s norm within 1e-6 of fp64
+   over the whole state; each timed on the largest leaf and over the
+   whole state (a launch a leaf) beside its bytes bound at 3.35 TB/s, its
+   plain version (with its peak memory above the state) and a library
+   call that computes the same (``torch._fused_adamw_``;
+   ``torch._foreach_norm`` and a norm of the norms), which the port never
+   calls;
 17. one JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
    the result line.
 
@@ -322,6 +333,192 @@ def run_trinity(torch):
         fail(f"trinity-mini against the reference: {bad}")
     torch.cuda.empty_cache()
     return {"row": row, "checks": line["checks"], "metrics": line["metrics"]}
+
+
+# ------------------------------------------------------------ phase 20
+ADAMW_HP = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)   # adamw()'s
+ADAMW_NORM_TOL = 1e-6        # grad_sumsq's norm against fp64, relative
+
+
+def _glm_leaf_shapes():
+    """chatglm3-6b's param shapes as its benchmark cell trains them."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from perfbench.entries.lm_local_steps import arch_config
+    from repro_torch import tree
+    from repro_torch.models import transformer
+    with open(os.path.join(root, "perfbench", "configs", "chatglm3-6b.json")) as f:
+        cfg = arch_config(json.load(f))
+    return [tuple(x.shape) for x in tree.leaves(transformer.init(None, cfg, "meta"))]
+
+
+def _adamw_leaves(torch, shapes, seed):
+    """(g, m, v, p) a shape on the card: step-3-like moments."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape, std, positive=False):
+        x = torch.empty(shape, device="cuda").normal_(0.0, std, generator=gen)
+        return x.abs_() if positive else x
+    return [(draw(s, 1e-3), draw(s, 1e-3), draw(s, 1e-6, True), draw(s, 0.02))
+            for s in shapes]
+
+
+def _adamw_scalars(torch, step=3):
+    from repro_torch.optim import schedules
+    s = torch.tensor(step, dtype=torch.int32, device="cuda")
+    t = s.to(torch.float32) + 1.0
+    return (schedules.warmup_cosine(3e-4, 2000, 100_000)(s),
+            1.0 - ADAMW_HP["b1"] ** t, 1.0 - ADAMW_HP["b2"] ** t)
+
+
+def _peak_above(torch, fn):
+    """Device memory ``fn`` allocates above what is allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _time_adamw(torch, leaves, label, iters, plain_iters):
+    """Rows 7 (``adamw_step``) and 7n (``grad_sumsq``) over ``leaves``."""
+    from repro_torch.kernels.adamw import ops, ref
+    from repro_torch.optim import optimizers as opt_lib
+    gs = [x[0] for x in leaves]
+    n = sum(g.numel() for g in gs)
+    lr, bc1, bc2 = _adamw_scalars(torch)
+    _, scale = ops.grad_norm(gs, 1.0)
+    steps = [torch.full((), 4.0, device="cuda") for _ in leaves]
+
+    def kernel():
+        for leaf in leaves:
+            ops.adamw_step(*leaf, scale, lr, bc1, bc2, **ADAMW_HP)
+
+    def library():
+        g_, m_, v_, p_ = (list(x) for x in zip(*leaves))
+        torch._fused_adamw_(p_, g_, m_, v_, [], steps, lr=3e-4, beta1=ADAMW_HP["b1"],
+                            beta2=ADAMW_HP["b2"], weight_decay=ADAMW_HP["weight_decay"],
+                            eps=ADAMW_HP["eps"], amsgrad=False, maximize=False)
+
+    def norm_library():
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+
+    def plain():           # the step's plain path: g scaled in place and consumed
+        for g, m, v, p in leaves:
+            opt_lib.apply_updates(p, ref.adamw_update(g.mul_(scale), m, v, p, lr, bc1,
+                                                      bc2, **ADAMW_HP))
+
+    rows = {}
+    k_ms, timing, names = device_ms(kernel, iters)
+    lib_ms, _, _ = device_ms(library, iters)
+    n_ms, n_timing, n_names = device_ms(lambda: ops.grad_norm(gs, 1.0), iters)
+    n_lib, _, _ = device_ms(norm_library, iters)
+    n_plain, _, _ = device_ms(lambda: ref.grad_norm(gs, 1.0), plain_iters)
+    k_mem = _peak_above(torch, kernel)
+    p_mem = _peak_above(torch, plain)
+    p_ms, _, _ = device_ms(plain, plain_iters)
+    shape = f"{label}: {len(leaves)} fp32 leaves, {n} elements"
+    for name, ms, bound, pl, lib, t, nm, per in (
+            ("adamw_step", k_ms, 28.0 * n, p_ms, lib_ms, timing, names, 28),
+            ("grad_sumsq", n_ms, 4.0 * n, n_plain, n_lib, n_timing, n_names, 4)):
+        b_ms, _ = bound_ms(bound, 0.0)
+        rows[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": "bytes", "plain_ms": pl,
+                      "library_ms": lib, "shape": shape, "timing": t,
+                      "bytes_per_element": per, "share": b_ms / ms}
+        print(f"{name} over {shape}: {ms:.5f} ms ({t}; {', '.join(x[:50] for x in nm)}), "
+              f"bound {b_ms:.5f} ms at {per} B an element ({100 * b_ms / ms:.2f}%), "
+              f"plain {pl:.5f} ms, library {lib:.5f} ms")
+    rows["adamw_step"].update(kernel_peak_bytes=k_mem, plain_peak_bytes=p_mem)
+    print(f"adamw over {label}: memory above the state, kernel {k_mem / 2**30:.4f} GiB, "
+          f"plain {p_mem / 2**30:.4f} GiB")
+    return rows
+
+
+def _adamw_state_err(torch, leaves, scale, lr, bc1, bc2, chunk=1 << 27):
+    """max |kernel - plain| over m, v and p after one step of ``leaves``,
+    ``chunk`` elements of a leaf at a time (the state and its plain copy
+    would not fit on the card together; the kernel is elementwise, so a
+    chunk's launch computes what the leaf's does there); g left as it was."""
+    from repro_torch.kernels.adamw import ops, ref
+    err, kept = 0.0, True
+    for leaf in leaves:
+        flat = [x.view(-1) for x in leaf]
+        for i in range(0, flat[0].numel(), chunk):
+            part = [x[i:i + chunk] for x in flat]
+            want = [x.clone() for x in part]
+            ops.adamw_step(*part, scale, lr, bc1, bc2, **ADAMW_HP)
+            ref.adamw_step(*want, scale, lr, bc1, bc2, **ADAMW_HP)
+            kept &= bool(torch.equal(part[0], want[0]))
+            err = max([err] + [float((a - b).abs().max()) for a, b in zip(part[1:], want[1:])])
+            del want
+    return err, kept
+
+
+def run_adamw(torch):
+    """Phase 20: the clip and AdamW kernels at chatglm3-6b's state."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.adamw import ops, ref
+    t_phase = time.perf_counter()
+    shapes = _glm_leaf_shapes()
+    big = max(shapes, key=lambda s: int(torch.Size(s).numel()))
+    # the largest leaf, bitwise, with the clip engaged
+    (leaf,) = _adamw_leaves(torch, [big], 20)
+    want = [x.clone() for x in leaf]
+    g0 = leaf[0].clone()
+    lr, bc1, bc2 = _adamw_scalars(torch)
+    norm, scale = ops.grad_norm([leaf[0]], 1.0)
+    leaf_norm_err = abs(float(norm) - float(ref.grad_norm([leaf[0]], 1.0)[0]))
+    reset_launches()
+    ops.adamw_step(*leaf, scale, lr, bc1, bc2, **ADAMW_HP)
+    torch.cuda.synchronize()
+    ref.adamw_step(*want, scale, lr, bc1, bc2, **ADAMW_HP)
+    leaf_err = max(float((a - b).abs().max()) for a, b in zip(leaf[1:], want[1:]))
+    bitwise = {k: bool(torch.equal(a, b)) for k, a, b in zip("mvp", leaf[1:], want[1:])}
+    if not (all(bitwise.values()) and torch.equal(leaf[0], g0)
+            and float(scale) < 1.0 and LAUNCHES["adamw_step"] == 1):
+        fail(f"adamw_step at {big}: bitwise {bitwise}, g kept "
+             f"{torch.equal(leaf[0], g0)}, scale {float(scale)}, launches {dict(LAUNCHES)}")
+    del want, g0
+    leaf_rows = _time_adamw(torch, [leaf], f"the largest leaf {big}", 20, 5)
+    leaf_rows["adamw_step"]["max_abs_err"] = leaf_err
+    leaf_rows["grad_sumsq"]["max_abs_err"] = leaf_norm_err
+    del leaf
+    torch.cuda.empty_cache()
+    # the whole state
+    leaves = _adamw_leaves(torch, shapes, 21)
+    gs = [x[0] for x in leaves]
+    reset_launches()
+    norm, scale = ops.grad_norm(gs, 1.0)
+    want = sum(float(torch.linalg.vector_norm(g, dtype=torch.float64)) ** 2
+               for g in gs) ** 0.5
+    gap = abs(float(norm) / want - 1)
+    norm_err = abs(float(norm) - float(ref.grad_norm(gs, 1.0)[0]))
+    again = ops.grad_norm(gs, 1.0)
+    if gap > ADAMW_NORM_TOL or not torch.equal(again[0], norm) \
+            or LAUNCHES["grad_sumsq"] != 2 * (len(gs) + 1):
+        fail(f"grad_sumsq over the state: gap to fp64 {gap}, repeat "
+             f"{torch.equal(again[0], norm)}, launches {dict(LAUNCHES)}")
+    print(f"grad_sumsq over chatglm3's {len(gs)} leaves: norm {float(norm):.6f}, fp64 "
+          f"{want:.6f}, relative gap {gap:.3e} (limit {ADAMW_NORM_TOL}); bitwise "
+          f"on a second call; the plain norm's {norm_err:.3e} away")
+    lr, bc1, bc2 = _adamw_scalars(torch)
+    state_err, kept = _adamw_state_err(torch, leaves, scale, lr, bc1, bc2)
+    if state_err or not kept:
+        fail(f"adamw_step over the state: max |kernel - plain| {state_err} over m, v "
+             f"and p (not bitwise), g kept {kept}")
+    print(f"adamw_step over chatglm3's state: m, v and p bitwise the plain version "
+          f"(max |kernel - plain| {state_err}), g kept")
+    state_rows = _time_adamw(torch, leaves, f"chatglm3-6b's state ({len(shapes)} leaves)",
+                             10, 3)
+    state_rows["adamw_step"]["max_abs_err"] = state_err
+    state_rows["grad_sumsq"].update(max_abs_err=norm_err, fp64_gap=gap)
+    del leaves, gs
+    torch.cuda.empty_cache()
+    print(f"phase 20 took {time.perf_counter() - t_phase:.3f} s")
+    return {"leaf": leaf_rows, "state": state_rows, "norm_gap": gap,
+            "bitwise": bitwise, "leaves": len(shapes)}
 
 
 # ----------------------------------------------------------------- timing
@@ -2659,6 +2856,7 @@ def run_lm_training(torch):
     """Phase 14a: the launcher's run_plain at llama3-8b full width, depth
     TRAIN_DEPTH, B 2 x S 4096, 6 AdamW steps with remat full, counted; then
     one more step under the profiler."""
+    from repro_torch import tree
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train as launch_train
@@ -2688,7 +2886,9 @@ def run_lm_training(torch):
           f"{after_first:.4f} s a step after the first "
           f"({args.batch * args.seq / after_first:.1f} tokens/s); peak device "
           f"memory {peak / 2**30:.3f} GiB; launches {json.dumps(launches, sort_keys=True)} "
-          f"({per_step.get('flash_attention', 0):.1f} flash a step)")
+          f"({per_step.get('flash_attention', 0):.1f} flash, "
+          f"{per_step.get('adamw_step', 0):.1f} adamw_step and "
+          f"{per_step.get('grad_sumsq', 0):.1f} grad_sumsq a step)")
     import math
     if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
                for h in history):
@@ -2702,6 +2902,11 @@ def run_lm_training(torch):
             or launches.get("flash_backward_plain", 0)):
         fail(f"lm train: flash backward launches {launches}, not one sm90 a "
              f"layer a step ({TRAIN_DEPTH * steps}) and none plain")
+    leaves = sum(x.numel() > 0 for x in tree.leaves(state["params"]))
+    opt_want = {"adamw_step": leaves * steps, "grad_sumsq": (leaves + 1) * steps}
+    if {k: launches.get(k, 0) for k in opt_want} != opt_want:
+        fail(f"lm train: clip and AdamW launches {launches}, not one adamw_step a "
+             f"leaf a step and one grad_sumsq a leaf and the final a step ({opt_want})")
     embed0 = layers.embed_init(torch.Generator(device="cuda").manual_seed(0),
                                cfg.vocab_size, cfg.d_model, dev)["table"]
     if (torch.equal(embed0, state["params"]["embed"]["table"])
@@ -3423,7 +3628,7 @@ def check_hubert_kernels_vs_plain(torch):
     def encode():
         with torch.no_grad():
             h, positions = transformer._embed_inputs(weights, cfg, inputs)
-            h, _ = transformer._stack_forward(weights, cfg, h, positions, None)
+            h, _, _ = transformer._stack_forward(weights, cfg, h, positions, None)
             return layers.norm_apply(weights["final_norm"], h, cfg.norm).float()
 
     torch.cuda.synchronize()
@@ -4122,6 +4327,12 @@ def main() -> int:
     print("trinity: " + json.dumps({k: v for k, v in trinity.items() if k != "row"},
                                    sort_keys=True, default=str))
 
+    # phase 20: the train step's clip and AdamW kernels at chatglm3-6b's
+    # benchmark state, against their plain version and a library call
+    adamw = run_adamw(torch)
+    print("adamw: " + json.dumps({k: v for k, v in adamw.items()}, sort_keys=True,
+                                 default=str))
+
     # phase 17: report
     kernels = []
     for kname, src, replaces, err in (
@@ -4227,6 +4438,20 @@ def main() -> int:
                     "bound_ms": row["bound_ms"], "bound_by": "operations",
                     "library_ms": row["ms"], "shape": row["shape"],
                     "timing": row["timing"]})
+    # the clip and AdamW rows (phase 20): 7 and 7n, each at the largest leaf and over
+    # chatglm3-6b's whole state; the launches are phase 14a's (the launcher's
+    # training run, llama3-8b at depth TRAIN_DEPTH), as the other training rows'
+    train = lm["train"]
+    for kname in ("adamw_step", "grad_sumsq"):
+        for site in ("leaf", "state"):
+            kernels.append({"name": f"{kname}@glm_{site}", "route": "cuda",
+                            "source": "src/repro_torch/csrc/adamw.cu",
+                            "replaces": "none (the JAX optimizer is jnp: "
+                                        "src/repro/optim/optimizers.py adamw)",
+                            "launches": train["launches"][kname],
+                            "launches_at": f"llama3-8b depth {TRAIN_DEPTH}, "
+                                           f"{train['steps']} training steps",
+                            **adamw[site][kname]})
     f2 = times["wfedavg@f2"]
     print("wfedavg at f2.w: " + json.dumps(f2, sort_keys=True))
     print("flash at gemma3 local heads: " + json.dumps(

@@ -27,7 +27,7 @@ from typing import Dict, List, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("quantize", "wfedavg", "flash_attention", "flash_attention_sm90",
-           "flash_attention_bwd_sm90")
+           "flash_attention_bwd_sm90", "adamw")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -63,6 +63,15 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                          + [_I, _I, _F, _P],
         # batch, H, KH, Sq, Skv, Dh; out: the scratch's 4-byte words
         "flash_attention_bwd_sm90_scratch": [_I] * 6 + [ctypes.POINTER(_LL)],
+    },
+    "adamw": {
+        # g, m, v, p, numel; scale, lr, bc1, bc2 (0-d on the card); b1,
+        # 1 - b1, b2, 1 - b2, eps, weight decay; stream
+        "adamw_step_f32": [_P] * 4 + [_LL] + [_P] * 4 + [_F] * 6 + [_P],
+        # g, numel, its partials, their count (blocks); stream
+        "grad_sumsq_partial_f32": [_P, _LL, _P, _I, _P],
+        # the partials, their count, max_norm, out (norm, scale); stream
+        "grad_sumsq_final_f32": [_P, _I, _F, _P, _P],
     },
 }
 # the sm90 flash kernels return ENCODE_FAILED + the CUresult when

@@ -17,6 +17,16 @@ state (``donate_argnums=(0,)``). The
 arithmetic is the JAX functions', operation for operation; every quotient
 divides by an fp32 tensor (a CUDA division by a Python scalar multiplies by
 its reciprocal).
+
+The train step takes the clip and the step together: ``params, state, norm
+= opt.apply(grads, state, params, step, max_norm)``, the norm under the
+``dfl.train.clip`` span and the update under ``dfl.train.optimizer``. For
+sgdm and adafactor it is ``clip_by_global_norm``, ``update`` and
+``apply_updates``; for AdamW the wrappers of ``kernels.adamw``: on the card
+two hand-written kernels (the norm in one read of the grads, the update in
+one pass a leaf, bitwise ``update`` and ``apply_updates`` given the same
+clip scale), on the CPU the same op-by-op code; on both the grads are left
+as they are.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from typing import Callable
 import torch
 
 from repro_torch import tree
+from repro_torch.core.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +44,7 @@ class Optimizer:
     name: str
     init: Callable
     update: Callable  # (grads, state, params, step) -> (updates, state)
+    apply: Callable   # (grads, state, params, step, max_norm) -> (params, state, norm)
 
 
 def _zeros32(p):
@@ -64,14 +76,33 @@ def global_norm(tree_):
                           for x in tree.leaves(tree_)))
 
 
+def clip_scale(norm, max_norm):
+    """``min(1, max_norm / max(norm, 1e-9))`` as a 0-d fp32 tensor."""
+    return torch.clamp_max(
+        torch.tensor(float(max_norm), device=norm.device) / torch.clamp_min(norm, 1e-9),
+        1.0)
+
+
 def clip_by_global_norm(grads, max_norm):
     """(grads scaled to a global norm of at most ``max_norm``, the norm);
     the grads are scaled in place."""
     norm = global_norm(grads)
-    scale = torch.clamp_max(
-        torch.tensor(float(max_norm), device=norm.device) / torch.clamp_min(norm, 1e-9),
-        1.0)
+    scale = clip_scale(norm, max_norm)
     return tree.map(lambda g: g.mul_(scale), grads), norm
+
+
+def _composed_apply(update):
+    """``apply`` as ``clip_by_global_norm``, ``update`` and ``apply_updates``."""
+    def apply(grads, state, params, step, max_norm):
+        with span("dfl.train.clip"):
+            grads, norm = clip_by_global_norm(grads, max_norm)
+        with span("dfl.train.optimizer"):
+            updates, state = update(grads, state, params, step)
+            del grads
+            params = apply_updates(params, updates)
+        return params, state, norm
+
+    return apply
 
 
 # ----------------------------------------------------------------- sgd+momentum
@@ -87,35 +118,43 @@ def sgd_momentum(lr_fn, momentum=0.9, weight_decay=0.0):
             lambda m, p: -lr * (m + weight_decay * p.to(torch.float32)), mu, params)
         return upd, {"mu": mu}
 
-    return Optimizer("sgdm", init, update)
+    return Optimizer("sgdm", init, update, _composed_apply(update))
 
 
 # ------------------------------------------------------------------------ adamw
 def adamw(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
+    # imported here: the kernels' plain version builds on this module
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.kernels.adamw import ref as adamw_ref
+    hp = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+
     def init(params):
         return {"m": tree.map(_zeros32, params), "v": tree.map(_zeros32, params)}
 
-    def update(grads, state, params, step):
-        lr = lr_fn(step)
+    def schedule(step):
+        """(lr, bc1, bc2): the step's learning rate and bias corrections."""
         t = _step_f32(step) + 1.0
-        bc1 = 1.0 - b1 ** t
-        bc2 = 1.0 - b2 ** t
+        return lr_fn(step), 1.0 - b1 ** t, 1.0 - b2 ** t
 
-        def leaf(g, m, v, p):
-            g = g.to(torch.float32)
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * torch.square(g))
-            # -lr * (mhat / (sqrt(vhat) + eps) + wd * p), op by op, written
-            # into the (consumed) grad: one leaf's temporaries at a time
-            upd = torch.div(m, bc1, out=g)
-            upd.div_(torch.div(v, bc2).sqrt_().add_(eps))
-            upd.add_(weight_decay * p.to(torch.float32))
-            return upd.mul_(-lr)
-
-        upd = tree.map(leaf, grads, state["m"], state["v"], params)
+    def update(grads, state, params, step):
+        lr, bc1, bc2 = schedule(step)
+        upd = tree.map(lambda g, m, v, p: adamw_ref.adamw_update(g, m, v, p, lr, bc1,
+                                                                 bc2, **hp),
+                       grads, state["m"], state["v"], params)
         return upd, state
 
-    return Optimizer("adamw", init, update)
+    def apply(grads, state, params, step, max_norm):
+        gl = tree.leaves(grads)
+        with span("dfl.train.clip"):
+            norm, scale = adamw_ops.grad_norm(gl, max_norm)
+        with span("dfl.train.optimizer"):
+            lr, bc1, bc2 = schedule(step)
+            for g, m, v, p in zip(gl, tree.leaves(state["m"]), tree.leaves(state["v"]),
+                                  tree.leaves(params), strict=True):
+                adamw_ops.adamw_step(g, m, v, p, scale, lr, bc1, bc2, **hp)
+        return params, state, norm
+
+    return Optimizer("adamw", init, update, apply)
 
 
 # -------------------------------------------------------------------- adafactor
@@ -170,7 +209,7 @@ def adafactor(lr_fn, decay=0.8, eps=1e-30, clip_threshold=1.0):
         upd = [leaf(g, s, p) for g, s, p in zip(gl, sl, pl, strict=True)]
         return tree.unflatten(params, upd), state
 
-    return Optimizer("adafactor", init, update)
+    return Optimizer("adafactor", init, update, _composed_apply(update))
 
 
 _FACTORIES = {"sgdm": sgd_momentum, "adamw": adamw, "adafactor": adafactor}

@@ -89,13 +89,8 @@ def make_train_step(cfg: ArchConfig, opt: Optional[opt_lib.Optimizer] = None,
                     m = {k: v / n.to(v.device) for k, v in m.items()}
                     metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
                 grads = tree.map(lambda g: g / n.to(g.device), grads)
-            with span("dfl.train.clip"):
-                grads, gnorm = opt_lib.clip_by_global_norm(grads, grad_clip)
-            with span("dfl.train.optimizer"):
-                updates, opt_state = opt.update(grads, state["opt"], state["params"],
-                                                state["step"])
-                del grads
-                params = opt_lib.apply_updates(state["params"], updates)
+            params, opt_state, gnorm = opt.apply(grads, state["opt"], state["params"],
+                                                 state["step"], grad_clip)
             metrics = dict(metrics, grad_norm=gnorm)
             new = dict(state, params=params, opt=opt_state, step=state["step"] + 1)
             load = metrics.get("expert_load")

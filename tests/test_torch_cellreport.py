@@ -499,6 +499,8 @@ def test_cells_run_at_full_size_on_meta():
         cfg.scaled(num_layers=4), dataclasses.replace(SHAPES["train_4k"],
                                                       global_batch=2),
         mesh_lib.AbstractMesh(("data", "model"), (1, 1)))
-    assert counts["kernel_calls"] == {"flash_attention_sm90": 8}
+    # 12 param leaves: an AdamW launch each, a partial norm each and the final
+    assert counts["kernel_calls"] == {"flash_attention_sm90": 8, "adamw_step": 12,
+                                      "grad_sumsq": 13}
     assert rec["roofline"]["collective_bytes"] == 0.0
     assert rec["roofline"]["dominant"] in ("compute", "memory")

@@ -884,3 +884,150 @@ def test_slstm_graph_route_is_the_eager_loop(cuda, S, cached):
     if cached:
         for k in last:
             assert torch.equal(caches[0][k], last[k])
+
+
+# -------------------------------------------------------------- clip and AdamW
+ADAMW_HP = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def _adamw_leaf(g, shape, offset=0):
+    """g, m, v, p of ``shape`` on the card; ``offset`` > 0 lays each one
+    ``offset`` floats past an aligned base (the kernels' one-float path)."""
+    n = int(np.prod(shape))
+
+    def draw(scale, positive=False):
+        x = torch.randn(n + offset, generator=g, device="cuda") * scale
+        return (x.abs() if positive else x)[offset:].view(shape)
+    return draw(1e-2), draw(1e-2), draw(1e-4, positive=True), draw(0.02)
+
+
+@pytest.mark.parametrize("shape,offset", [((7,), 0), ((1,), 0), ((1001, 3), 0),
+                                          ((17, 13696, 64), 0), ((257, 9), 1)])
+@pytest.mark.parametrize("step,clip", [(0, True), (3, False)])
+def test_adamw_step_kernel_bitwise_vs_plain(cuda, shape, offset, step, clip):
+    """m, v and p bitwise the plain version given the kernel's clip scale
+    (engaged or not); g read only; one launch a leaf."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.adamw import ops, ref
+    from repro_torch.optim import schedules
+    g = torch.Generator(device="cuda").manual_seed(step * 7 + len(shape))
+    grad, m, v, p = _adamw_leaf(g, shape, offset)
+    norm, scale = ops.grad_norm([grad], 1e-3 if clip else 1e6)
+    assert (float(scale) < 1.0) == clip
+    s = torch.tensor(step, dtype=torch.int32, device=cuda)
+    lr = schedules.warmup_cosine(3e-4, 2, 100)(s)
+    t = s.to(torch.float32) + 1.0
+    bc1, bc2 = 1.0 - ADAMW_HP["b1"] ** t, 1.0 - ADAMW_HP["b2"] ** t
+    want = [x.clone() for x in (grad, m, v, p)]
+    g0, p0 = grad.clone(), p.clone()
+    reset_launches()
+    ops.adamw_step(grad, m, v, p, scale, lr, bc1, bc2, **ADAMW_HP)
+    torch.cuda.synchronize()
+    assert LAUNCHES["adamw_step"] == 1
+    ref.adamw_step(*want, scale, lr, bc1, bc2, **ADAMW_HP)
+    assert torch.equal(grad, g0)
+    for name, a, b in zip("mvp", (m, v, p), want[1:]):
+        assert torch.equal(a, b), name
+    assert not torch.equal(p, p0)                 # the update moved p
+
+
+def test_grad_sumsq_kernel_vs_fp64_and_repeats(cuda):
+    """The norm within 1e-6 of the fp64 norm, the scale the plain formula's
+    given that norm, both bitwise over two calls; a launch a non-empty leaf
+    and the final one."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.adamw import ops
+    from repro_torch.optim import optimizers as opt_lib
+    g = torch.Generator(device="cuda").manual_seed(3)
+    shapes = [(7,), (1,), (0, 4), (1001, 3), (17, 13696, 64), (4097,)]
+    leaves = [torch.randn(s, generator=g, device="cuda") for s in shapes]
+    leaves.append(torch.randn(1 + 5000, generator=g, device="cuda")[1:])   # misaligned
+    want = float(torch.sqrt(sum(x.double().square().sum() for x in leaves)))
+    reset_launches()
+    norm, scale = ops.grad_norm(leaves, 1.0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["grad_sumsq"] == 6 + 1       # the non-empty leaves, the final
+    assert abs(float(norm) / want - 1) <= 1e-6
+    assert torch.equal(scale, opt_lib.clip_scale(norm, 1.0)) and float(scale) < 1.0
+    again = ops.grad_norm(leaves, 1.0)
+    assert torch.equal(again[0], norm) and torch.equal(again[1], scale)
+    _, big = ops.grad_norm(leaves, 1e9)
+    assert float(big) == 1.0
+
+
+def test_adamw_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels.adamw import ops
+    x = torch.zeros(4, 6, device=cuda)
+    s = torch.ones((), device=cuda)
+    with pytest.raises(TypeError):
+        ops.adamw_step(x, x.clone(), x.clone(), x.to(torch.bfloat16), s, s, s, s, **ADAMW_HP)
+    with pytest.raises(ValueError):
+        ops.adamw_step(x.t().contiguous().t(), x.clone(), x.clone(), x.clone(), s, s, s, s,
+                       **ADAMW_HP)
+    with pytest.raises(ValueError):
+        ops.adamw_step(x, x.clone(), x.clone(), x.clone(), s, s.cpu(), s, s, **ADAMW_HP)
+    with pytest.raises(TypeError):
+        ops.grad_norm([x, x.to(torch.bfloat16)], 1.0)
+    with pytest.raises(ValueError):
+        ops.grad_norm([x.t()], 1.0)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "trinity-mini"])
+def test_train_step_adamw_kernels_are_the_plain_path_on_the_card(cuda, arch):
+    """Two steps of ``make_train_step`` (a dense config, and the dropless
+    MoE config with its expert bias) through the kernels, against the plain
+    clip-and-AdamW run on the same CUDA grads given the kernel's norm:
+    params and state bitwise; one ``adamw_step`` launch a leaf a step."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.adamw import ref
+    from repro_torch.optim import optimizers as opt_lib
+    from repro_torch.train import step
+    cfg = smoke_config(arch)
+    if arch == "llama3-8b":
+        cfg = dataclasses.replace(cfg, head_dim=64, d_model=256)
+    opt = step.make_optimizer(cfg)
+    seen = []
+
+    def watched(grads, state, params, s, max_norm):
+        gl = [x.clone() for x in tree.leaves(grads)]
+        out = opt.apply(grads, state, params, s, max_norm)
+        seen.append((gl, out[2].clone()))
+        return out
+
+    ts = step.make_train_step(cfg, dataclasses.replace(opt, apply=watched))
+    state = step.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  opt=opt, device="cuda")
+    plain = {"params": tree.map(torch.clone, state["params"]),
+             "m": tree.map(torch.clone, state["opt"]["m"]),
+             "v": tree.map(torch.clone, state["opt"]["v"])}
+    pipe = TokenPipeline(cfg.vocab_size, 2, 128)
+    leaves = sum(x.numel() > 0 for x in tree.leaves(state["params"]))
+    reset_launches()
+    for k in range(2):
+        batch = {key: torch.as_tensor(x, device="cuda")
+                 for key, x in pipe.batch_at(k).items()}
+        s = state["step"].clone()
+        state, metrics = ts(state, batch)
+        grads, norm = seen[-1]
+        assert torch.equal(metrics["grad_norm"], norm)
+        want = float(opt_lib.global_norm(grads))
+        assert abs(float(norm) / want - 1) <= 1e-6
+        scale = opt_lib.clip_scale(norm, 1.0)
+        lr = step.make_lr_fn(cfg)(s)
+        t = s.to(torch.float32) + 1.0
+        bc1, bc2 = 1.0 - ADAMW_HP["b1"] ** t, 1.0 - ADAMW_HP["b2"] ** t
+        for g_, m, v, p in zip(grads, *(tree.leaves(plain[k_]) for k_ in ("m", "v", "params"))):
+            ref.adamw_step(g_, m, v, p, scale, lr, bc1, bc2, **ADAMW_HP)
+        for name, got, ref_ in (("params", state["params"], plain["params"]),
+                                ("m", state["opt"]["m"], plain["m"]),
+                                ("v", state["opt"]["v"], plain["v"])):
+            for a, b in zip(tree.leaves(got), tree.leaves(ref_)):
+                assert torch.equal(a, b), (arch, k, name)
+    torch.cuda.synchronize()
+    assert LAUNCHES["adamw_step"] == 2 * leaves
+    assert LAUNCHES["grad_sumsq"] == 2 * (leaves + 1)
