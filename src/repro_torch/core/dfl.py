@@ -157,10 +157,10 @@ def abstract_gossip_round(cfg: ArchConfig, shape: InputShape, mesh, dfl: DFLConf
     """(round_fn, args): one device's gossip round over ``mesh`` and its
     inputs on the meta device, for the JAX module's ``lower_gossip_round``.
     ``round_fn(*args)`` runs node 0's round: it receives the schedule's
-    payloads (meta tensors; each exchange records its bytes with
-    ``launch.op_cost.record_collective``), takes a receipt on each with its
+    payloads (meta tensors; each exchange reports its bytes with
+    ``kernels.report_collective``), takes a receipt on each with its
     validation batch of ``val_rows`` rows and averages (Eq. 3); trace it
-    under an ``op_cost.OpCost``."""
+    under a ``launch.op_cost.OpCost``."""
     if shape.kind != "train":
         raise ValueError("the DFL gossip round applies to training shapes")
     fed_size = mesh.shape[fed_axis_for(mesh)]

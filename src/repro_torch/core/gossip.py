@@ -35,7 +35,7 @@ the seconds spent in ``tree_ppermute`` (packing, staging and waiting).
 The dry-run cell report traces one node's round on the meta device over a
 ``launch.mesh.AbstractMesh`` (no process group): there each exchange
 returns empty meta tensors of the received shapes and records its payload
-bytes with ``launch.op_cost.record_collective`` ("collective-permute"),
+bytes with ``kernels.report_collective`` ("collective-permute"),
 and nothing moves or is counted in ``WIRE``.
 """
 from __future__ import annotations
@@ -47,12 +47,11 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch import tree
+from repro_torch import kernels, tree
 from repro_torch.core import compression, fedavg
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.reputation import ReputationImpl
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch import op_cost
 
 WIRE: collections.Counter = collections.Counter()
 # NCCL groups that have had their first collective (see tree_ppermute)
@@ -75,7 +74,7 @@ def tree_ppermute(tree_, group, perm):
     tree (the dry-run cell report) moves nothing: see the module doc."""
     leaves = tree.leaves(tree_)
     if leaves and leaves[0].is_meta:
-        op_cost.record_collective(
+        kernels.report_collective(
             "collective-permute", sum(x.numel() * x.element_size() for x in leaves))
         return tree.map(torch.empty_like, tree_)
     group = dist.group.WORLD if group is None else group

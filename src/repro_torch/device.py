@@ -25,6 +25,13 @@ def of(params) -> torch.device:
     return tree.leaves(params)[0].device
 
 
+def sync(dev) -> None:
+    """Wait for ``dev``'s queued work: ``torch.cuda.synchronize`` on a CUDA
+    device, nothing on the CPU."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 @contextlib.contextmanager
 def deterministic():
     """Holds cuDNN to deterministic algorithms for the ``with`` body and

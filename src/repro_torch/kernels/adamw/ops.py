@@ -28,13 +28,24 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, report_meta
+from repro_torch.kernels import build, launch, report_meta
 from repro_torch.kernels.adamw import ref
 
 THREADS = 256          # a partial-sum block's threads (csrc/adamw.cu kThreads)
 SUMSQ_BLOCKS = 1024    # the most partial sums a leaf
 ADAMW_BYTES = 28       # g, m, v, p read; m, v, p written
 SUMSQ_BYTES = 4        # g read
+
+_P, _I, _LL, _F = build.PTR, build.INT, build.LONG, build.FLOAT
+ENTRIES = {"adamw": {
+    # g, m, v, p, numel; scale, lr, bc1, bc2 (0-d on the card); b1, 1 - b1,
+    # b2, 1 - b2, eps, weight decay; stream
+    "adamw_step_f32": [_P] * 4 + [_LL] + [_P] * 4 + [_F] * 6 + [_P],
+    # g, numel, its partials, their count (blocks); stream
+    "grad_sumsq_partial_f32": [_P, _LL, _P, _I, _P],
+    # the partials, their count, max_norm, out (norm, scale); stream
+    "grad_sumsq_final_f32": [_P, _I, _F, _P, _P],
+}}
 
 
 def sumsq_blocks(n: int) -> int:
@@ -53,10 +64,6 @@ def _check(named, device, *, scalar=False):
             raise ValueError(f"{name} must hold one element, got {tuple(t.shape)}")
         if not scalar and not t.is_contiguous():
             raise ValueError(f"adamw kernels take a contiguous {name}")
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def grad_norm(leaves, max_norm):
@@ -80,19 +87,15 @@ def grad_norm(leaves, max_norm):
                             nbytes=float(SUMSQ_BYTES * g.numel()))
         report_meta("grad_sumsq", flops=0.0, nbytes=8.0)
         return out[0], out[1]
-    lib, base = build.load("adamw"), partial.data_ptr()
-    with torch.cuda.device(device):
-        stream, off = _stream(device), 0
-        for g, b in zip(leaves, blocks):
-            if b:
-                build.check(lib.grad_sumsq_partial_f32(g.data_ptr(), g.numel(),
-                                                       base + 4 * off, b, stream),
-                            "grad_sumsq")
-                LAUNCHES["grad_sumsq"] += 1
-                off += b
-        build.check(lib.grad_sumsq_final_f32(base, total, float(max_norm),
-                                             out.data_ptr(), stream), "grad_sumsq")
-        LAUNCHES["grad_sumsq"] += 1
+    lib = build.load("adamw", ENTRIES["adamw"])
+    base, off = partial.data_ptr(), 0
+    for g, b in zip(leaves, blocks):
+        if b:
+            launch(lib, "grad_sumsq_partial_f32", device, g.data_ptr(), g.numel(),
+                   base + 4 * off, b, count="grad_sumsq")
+            off += b
+    launch(lib, "grad_sumsq_final_f32", device, base, total, float(max_norm),
+           out.data_ptr(), count="grad_sumsq")
     return out[0], out[1]
 
 
@@ -116,11 +119,8 @@ def adamw_step(g, m, v, p, scale, lr, bc1, bc2, *, b1, b2, eps, weight_decay):
     if device.type == "meta":
         report_meta("adamw_step", flops=0.0, nbytes=float(ADAMW_BYTES * n))
         return p
-    with torch.cuda.device(device):
-        status = build.load("adamw").adamw_step_f32(
-            g.data_ptr(), m.data_ptr(), v.data_ptr(), p.data_ptr(), n,
-            scale.data_ptr(), lr.data_ptr(), bc1.data_ptr(), bc2.data_ptr(),
-            b1, 1 - b1, b2, 1 - b2, eps, weight_decay, _stream(device))
-    build.check(status, "adamw_step")
-    LAUNCHES["adamw_step"] += 1
+    launch(build.load("adamw", ENTRIES["adamw"]), "adamw_step_f32", device,
+           g.data_ptr(), m.data_ptr(), v.data_ptr(), p.data_ptr(), n, scale.data_ptr(), lr.data_ptr(), bc1.data_ptr(),
+           bc2.data_ptr(), b1, 1 - b1, b2, 1 - b2, eps, weight_decay,
+           count="adamw_step")
     return p

@@ -22,61 +22,21 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Mapping, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("quantize", "wfedavg", "flash_attention", "flash_attention_sm90",
-           "flash_attention_bwd_sm90", "adamw")
+# one library a source, named after it
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# flash_attention: q, k, v, o, lse (null: none written); batch, H, KH, Sq,
-# Skv, Dh; (batch, seq, head) strides of q, k, v, o in elements; causal,
-# window, scale; stream
-_FLASH = [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P]
-# C signatures: every pointer and the stream as c_void_p; status is the
-# launch's cudaGetLastError() (0 = cudaSuccess)
-SIGNATURES: Dict[str, Dict[str, List]] = {
-    # quantize: a host array of segments (quantize/table.py SEGMENT), their
-    # count, the launch's block rows; stream
-    "quantize": {
-        "quantize_segments": [_P, _I, _LL, _P],
-        "dequantize_segments": [_P, _I, _LL, _P],
-    },
-    "wfedavg": {
-        "wfedavg_f32": [_P, _P, _P, _P, _I, _LL, _P],
-    },
-    "flash_attention": {
-        "flash_attention_fwd_f32": _FLASH,
-        "flash_attention_fwd_bf16": _FLASH,
-    },
-    "flash_attention_sm90": {
-        "flash_attention_fwd_sm90_bf16": _FLASH,
-        "flash_attention_sm90_smem_bytes": [_I],
-    },
-    # q, k, v, out, dout, lse, dq, dk, dv, scratch; the scratch's floats;
-    # batch, H, KH, Sq, Skv, Dh; (batch, seq, head) strides of q, k, v, out,
-    # dout; causal, window, scale; stream
-    "flash_attention_bwd_sm90": {
-        "flash_attention_bwd_sm90_bf16": [_P] * 10 + [_LL] + [_I] * 6 + [_LL] * 15
-                                         + [_I, _I, _F, _P],
-        # batch, H, KH, Sq, Skv, Dh; out: the scratch's 4-byte words
-        "flash_attention_bwd_sm90_scratch": [_I] * 6 + [ctypes.POINTER(_LL)],
-    },
-    "adamw": {
-        # g, m, v, p, numel; scale, lr, bc1, bc2 (0-d on the card); b1,
-        # 1 - b1, b2, 1 - b2, eps, weight decay; stream
-        "adamw_step_f32": [_P] * 4 + [_LL] + [_P] * 4 + [_F] * 6 + [_P],
-        # g, numel, its partials, their count (blocks); stream
-        "grad_sumsq_partial_f32": [_P, _LL, _P, _I, _P],
-        # the partials, their count, max_norm, out (norm, scale); stream
-        "grad_sumsq_final_f32": [_P, _I, _F, _P, _P],
-    },
-}
 # the sm90 flash kernels return ENCODE_FAILED + the CUresult when
 # cuTensorMapEncodeTiled refuses a tensor map
 ENCODE_FAILED = 10000
+
+# the C argument types of the wrappers' ``ENTRIES``: every pointer and the
+# stream a ``PTR``
+PTR, INT, LONG, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -150,14 +110,17 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def load(name: str, entries: Mapping[str, Sequence]) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use, with
+    the argument types of the caller's ``entries`` (entry -> argument types;
+    every pointer and the stream a ``c_void_p``) and an ``int`` status, the
+    launch's ``cudaGetLastError()`` (0 = cudaSuccess)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
-            for fn, argtypes in SIGNATURES[name].items():
+            for fn, argtypes in entries.items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int

@@ -46,7 +46,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES, build, report_meta
+from repro_torch.kernels import LAUNCHES, build, launch, report_meta
 from repro_torch.kernels.flash_attention.ref import attention_ref, flash_backward
 
 MAX_HEAD_DIM = 256
@@ -54,6 +54,28 @@ SM90_HEAD_DIMS = (64, 80, 128, 256)
 SM90_BWD_HEAD_DIMS = (64, 128)
 _ENTRY = {torch.float32: "flash_attention_fwd_f32",
           torch.bfloat16: "flash_attention_fwd_bf16"}
+
+_P, _I, _LL, _F = build.PTR, build.INT, build.LONG, build.FLOAT
+# a forward: q, k, v, o, lse (null: none written); batch, H, KH, Sq, Skv, Dh;
+# (batch, seq, head) strides of q, k, v, o in elements; causal, window,
+# scale; stream
+_FORWARD = [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P]
+ENTRIES = {
+    "flash_attention": {"flash_attention_fwd_f32": _FORWARD,
+                        "flash_attention_fwd_bf16": _FORWARD},
+    "flash_attention_sm90": {"flash_attention_fwd_sm90_bf16": _FORWARD,
+                             # Dh -> the kernel's dynamic shared memory a block
+                             "flash_attention_sm90_smem_bytes": [_I]},
+    "flash_attention_bwd_sm90": {
+        # q, k, v, out, dout, lse, dq, dk, dv, scratch; the scratch's
+        # floats; batch, H, KH, Sq, Skv, Dh; (batch, seq, head) strides of
+        # q, k, v, out, dout; causal, window, scale; stream
+        "flash_attention_bwd_sm90_bf16": [_P] * 10 + [_LL] + [_I] * 6 + [_LL] * 15
+                                         + [_I, _I, _F, _P],
+        # batch, H, KH, Sq, Skv, Dh; out: the scratch's 4-byte words
+        "flash_attention_bwd_sm90_scratch": [_I] * 6 + [ctypes.POINTER(_LL)],
+    },
+}
 
 
 def _tma_ready(t, head_dims) -> bool:
@@ -150,22 +172,16 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
         return (out, lse) if return_lse else out
     if k.shape[1] == 0:
         raise ValueError("flash_attention needs at least one key")
-    variant = _variant(q, k, v)
-    if variant == "sm90":
+    if _variant(q, k, v) == "sm90":
         source, entry = "flash_attention_sm90", "flash_attention_fwd_sm90_bf16"
+        count = ("flash_attention", "flash_attention_sm90")
     else:
-        source, entry = "flash_attention", _ENTRY[q.dtype]
-    with torch.cuda.device(q.device):
-        status = getattr(build.load(source), entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            0 if lse is None else lse.data_ptr(), B, H, KH, Sq, k.shape[1], Dh,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(bool(causal)), int(window), scale,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(status, source)
-    LAUNCHES["flash_attention"] += 1
-    if variant == "sm90":
-        LAUNCHES["flash_attention_sm90"] += 1
+        source, entry, count = "flash_attention", _ENTRY[q.dtype], "flash_attention"
+    launch(build.load(source, ENTRIES[source]), entry, q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           0 if lse is None else lse.data_ptr(), B, H, KH, Sq, k.shape[1], Dh,
+           *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+           int(bool(causal)), int(window), scale, count=count)
     return (out, lse) if return_lse else out
 
 
@@ -197,20 +213,17 @@ def flash_attention_backward(q, k, v, out, lse, dout, *, causal, window, scale=N
     dv = torch.empty_like(dk)
     if B == 0 or Sq == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lib = build.load("flash_attention_bwd_sm90")
+    lib = build.load("flash_attention_bwd_sm90", ENTRIES["flash_attention_bwd_sm90"])
     words = ctypes.c_longlong()   # the kernel's fp32 accumulators, counters and rows
     build.check(lib.flash_attention_bwd_sm90_scratch(B, H, KH, Sq, Skv, Dh,
                                                      ctypes.byref(words)),
                 "flash_attention_bwd_sm90")
     scratch = torch.empty(words.value, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        status = lib.flash_attention_bwd_sm90_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            scratch.data_ptr(), words.value, B, H, KH, Sq, Skv, Dh,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            *dout.stride()[:3], int(bool(causal)), int(window), scale,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(status, "flash_attention_bwd_sm90")
-    LAUNCHES["flash_attention_bwd_sm90"] += 1
+    launch(lib, "flash_attention_bwd_sm90_bf16", q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+           lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           scratch.data_ptr(), words.value, B, H, KH, Sq, Skv, Dh,
+           *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+           *dout.stride()[:3], int(bool(causal)), int(window), scale,
+           count="flash_attention_bwd_sm90")
     return dq, dk, dv

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import LAUNCHES, build, report_meta
+from repro_torch.kernels import build, launch, report_meta
 from repro_torch.kernels.quantize import table
 from repro_torch.kernels.quantize.ref import (dequantize_ref, dequantize_tree_ref,
                                               quantize_ref, quantize_tree_ref,
@@ -35,16 +35,19 @@ from repro_torch.kernels.quantize.ref import (dequantize_ref, dequantize_tree_re
 BLOCK_COLS = 256
 MAX_COLS = table.MAX_COLS
 
+# csrc/quantize.cu: a host array of segments (table.SEGMENT), their count,
+# the launch's block rows; stream
+_SEGMENTS = [build.PTR, build.INT, build.LONG, build.PTR]
+ENTRIES = {"quantize": {"quantize_segments": _SEGMENTS,
+                        "dequantize_segments": _SEGMENTS}}
+
 
 def _launch(kind: str, group, tab, device) -> None:
     """One launch of ``kind`` ("quantize" / "dequantize") over the filled
     table ``tab`` of ``group``."""
-    fn = getattr(build.load("quantize"), f"{kind}_segments")
-    with torch.cuda.device(device):
-        status = fn(tab.ctypes.data, len(tab), group.rows,
-                    torch.cuda.current_stream(device).cuda_stream)
-    build.check(status, f"{kind} ({len(tab)} segments, {group.rows} rows)")
-    LAUNCHES[kind] += 1
+    launch(build.load("quantize", ENTRIES["quantize"]), f"{kind}_segments", device,
+           tab.ctypes.data, len(tab), group.rows, count=kind,
+           what=f"{kind} ({len(tab)} segments, {group.rows} rows)")
 
 
 def _fill(group, x, q, s, flags):

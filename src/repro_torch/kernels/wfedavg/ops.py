@@ -14,10 +14,13 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import fedavg
-from repro_torch.kernels import LAUNCHES, build
+from repro_torch.kernels import build, launch
 from repro_torch.kernels.wfedavg.ref import wfedavg_ref
 
 MIN_KERNEL_ELEMS = 4096
+
+# csrc/wfedavg.cu: models, wn, prev, out, N, D; stream
+ENTRIES = {"wfedavg": {"wfedavg_f32": [build.PTR] * 4 + [build.INT, build.LONG, build.PTR]}}
 
 
 def wfedavg_flat(models, wn, prev):
@@ -41,12 +44,9 @@ def wfedavg_flat(models, wn, prev):
     out = torch.empty((d,), dtype=torch.float32, device=models.device)
     if d == 0:
         return out
-    with torch.cuda.device(models.device):
-        status = build.load("wfedavg").wfedavg_f32(
-            models.data_ptr(), wn.data_ptr(), prev.data_ptr(), out.data_ptr(),
-            n, d, torch.cuda.current_stream(models.device).cuda_stream)
-    build.check(status, "wfedavg_flat")
-    LAUNCHES["wfedavg"] += 1
+    launch(build.load("wfedavg", ENTRIES["wfedavg"]), "wfedavg_f32", models.device,
+           models.data_ptr(), wn.data_ptr(), prev.data_ptr(), out.data_ptr(), n, d,
+           count="wfedavg")
     return out
 
 

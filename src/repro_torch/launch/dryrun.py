@@ -75,7 +75,6 @@ from repro_torch import tree
 from repro_torch.chain import attacks, scenarios, simlax, sweeps
 from repro_torch.configs import ALL_IDS, ARCH_IDS, SHAPES, cell_status, get_config
 from repro_torch.configs.base import ATTN, ENC_ATTN, LOCAL_ATTN, SLSTM
-from repro_torch.core import compression
 from repro_torch.core import dfl as dfl_lib
 from repro_torch.core import topology as topology_lib
 from repro_torch.core.reputation import get as get_rep
@@ -229,11 +228,6 @@ def _parse_churn(args):
         rejoin_decay=args.churn_decay, initial_offline=offline)
 
 
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def _append(out, record):
     """Append ``record`` to the JSON list in ``out`` (made if missing)."""
     results = []
@@ -283,10 +277,10 @@ def _lax_run(args, dev, shards):
     run calls it."""
     sc, spec, topo, cfg, mal, attack, membership = _lax_setup(args, shards)
     sim = simlax.LaxSimulator(sc, topo, spec, get_rep("impl2"), cfg, device=dev)
-    _sync(dev)
+    device_lib.sync(dev)
     t0 = time.perf_counter()
     res = sim.run()
-    _sync(dev)
+    device_lib.sync(dev)
     return res, time.perf_counter() - t0, mal, attack, membership
 
 
@@ -392,14 +386,14 @@ def run_sweep_cli(args, dev):
     print(f"[dryrun] sweep: {len(cells)} federations in {n_batches} "
           f"batched dispatches over {len(devices)} devices")
     for d in devices:
-        _sync(d)
+        device_lib.sync(d)
     t0 = time.perf_counter()
     outcomes = sweeps.run_sweep(
         cells, cfg=cfg, scenario=scenario_name,
         topology_kind=args.topology, degree=args.topology_degree,
         target_acc=args.target_acc, max_batch=args.max_batch, devices=devices)
     for d in devices:
-        _sync(d)
+        device_lib.sync(d)
     wall = time.perf_counter() - t0
     tables = sweeps.frontier_tables(outcomes, target_acc=args.target_acc)
     for row in tables["accuracy_under_attack"]:

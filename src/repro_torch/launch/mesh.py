@@ -39,10 +39,6 @@ import torch.distributed as dist
 
 from repro_torch import device as device_lib
 
-# the kernels a rank may launch; spawn builds them before it starts the
-# ranks, so the ranks only load them
-RANK_KERNELS = ("quantize", "flash_attention", "flash_attention_sm90",
-                "flash_attention_bwd_sm90")
 # how long spawn waits for the other ranks' errors after the first
 ERROR_GRACE_S = 2.0
 
@@ -161,7 +157,7 @@ def spawn(fn, world_size: int, *, device="cuda", backend=None,
     * The process group's timeout is ``timeout`` seconds, and so is the
       whole launch's: when any rank raises, exits without a result, or the
       time runs out, every rank is killed and this call raises.
-    * On CUDA the parent builds ``RANK_KERNELS`` first, so the ranks never
+    * On CUDA the parent builds every kernel first, so the ranks never
       compile the same library at once.
     * On the CPU each rank runs ``cpu_count // world_size`` threads.
     """
@@ -175,7 +171,7 @@ def spawn(fn, world_size: int, *, device="cuda", backend=None,
     if dev.type == "cuda":
         device_lib.resolve(dev)
         from repro_torch.kernels import build
-        build.build(RANK_KERNELS)
+        build.build()
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="repro_torch_spawn_") as tmp:
         results = ctx.Queue()

@@ -24,8 +24,8 @@ and counts:
   from its first op until its last tensor dies; ``peak_live`` is the most
   alive at once. The step's arguments, alive before the trace, are left
   out (``known``).
-* collective bytes by kind: what ``record_collective`` is told (the gossip
-  round's exchanges on meta tensors).
+* collective bytes by kind: what ``kernels.report_collective`` is told (the
+  gossip round's exchanges on meta tensors).
 
 What the counts mean for one device of a mesh is the cell report's rule
 (``launch.dryrun.cell_record``): the step is traced at a device's share of
@@ -76,16 +76,6 @@ _NO_TRAFFIC = {aten.empty, aten.empty_like, aten.empty_strided,
                aten.sym_size, aten.sym_stride, aten.sym_numel,
                aten.is_same_size, aten.set_}
 
-_ACTIVE: list = []
-
-
-def record_collective(kind: str, nbytes: float) -> None:
-    """A collective of ``kind`` ("collective-permute", ...) moving ``nbytes``
-    from this device, for every walker that is tracing."""
-    for walker in _ACTIVE:
-        walker.collective(kind, nbytes)
-
-
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
@@ -134,13 +124,11 @@ class OpCost(TorchDispatchMode):
 
     # ---------------------------------------------------------------- hooks
     def __enter__(self):
-        kernels.META_SINKS.append(self.kernel)
-        _ACTIVE.append(self)
+        kernels.WALKERS.append(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
-        kernels.META_SINKS.remove(self.kernel)
-        _ACTIVE.remove(self)
+        kernels.WALKERS.remove(self)
         return super().__exit__(*exc)
 
     def kernel(self, name, *, flops, nbytes):

@@ -97,11 +97,6 @@ def _batch(np_batch, dev):
     return {k: torch.as_tensor(v, device=dev) for k, v in np_batch.items()}
 
 
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def run_plain(args, cfg, dev):
     """Train one model. Returns (state, history): the final state and one
     record a step (step, loss, accuracy, grad_norm, seconds)."""
@@ -196,11 +191,11 @@ def _dfl_rank(rank, dev, args, cfg):
                           (10_000 + rnd) * 131 + me)
         vb = {k: torch.as_tensor(v[: max(2, args.batch // 2)], device=dev)
               for k, v in val.items()}
-        _sync(dev)
+        device_lib.sync(dev)
         t1 = time.perf_counter()
         new_params, rep_row, gm = gossip_round(state["params"], rep_row, vb)
         state = dict(state, params=new_params)
-        _sync(dev)
+        device_lib.sync(dev)
         records.append(dict(round=rnd, F=f, loss=float(metrics["loss"]),
                             neighbor_acc=float(gm["mean_neighbor_acc"]),
                             rep_min=float(gm["rep_min"]),

@@ -40,11 +40,6 @@ from repro_torch.models import transformer
 DTYPE = torch.bfloat16
 
 
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def prefill_inputs(cfg, batch, prompt_len, generator, device):
     """The prefill batch drawn from ``generator``: token ids (B, P); for the
     audio frontend frame embeddings (B, P, d_model) in their place; for the
@@ -81,12 +76,12 @@ def serve(cfg, batch, prompt_len, gen, device="cuda"):
     g.manual_seed(1)
     inputs = prefill_inputs(cfg, batch, prompt_len, g, dev)
     cache = transformer.cache_init(cfg, batch, prompt_len + gen, dev) if decode else None
-    _sync(dev)
+    device_lib.sync(dev)
     t1 = time.perf_counter()
     prefill_logits, cache = transformer.prefill(weights, cfg, inputs, cache,
                                                 dtype=DTYPE)
     logits = prefill_logits
-    _sync(dev)
+    device_lib.sync(dev)
     t2 = time.perf_counter()
     tokens = None
     if decode:
@@ -98,7 +93,7 @@ def serve(cfg, batch, prompt_len, gen, device="cuda"):
             tok = torch.argmax(logits, -1)[:, None]
             generated.append(tok)
         tokens = torch.cat(generated, dim=1)
-    _sync(dev)
+    device_lib.sync(dev)
     t3 = time.perf_counter()
     return {"tokens": tokens, "prefill_logits": prefill_logits, "logits": logits,
             "inputs": inputs, "weights": weights, "cache": cache,
